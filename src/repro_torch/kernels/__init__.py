@@ -1,0 +1,34 @@
+"""Hand-written CUDA kernels for the scheduler's hot spots (Hopper, sm_90a).
+
+Each kernel package has:
+  kernel_cuda.py - ctypes wrapper of the CUDA C++ source in ``csrc/``,
+                   with a launch counter (``<wrapper>.launches``)
+  ops.py         - dispatch: CUDA tensor -> kernel, CPU tensor -> plain version
+  ref.py         - the plain PyTorch version (any device)
+
+  costmap      - fused latency -> LUT perf -> integer arc cost (Eq. 6);
+                 replaces repro.kernels.costmap.kernel.costmap_pallas
+  auction_bid  - per-row top-2 bid of the auction solver; replaces
+                 repro.kernels.auction_bid.kernel.bid_top2_pallas
+
+`build` compiles the sources with nvcc on first use.
+"""
+
+from .auction_bid.kernel_cuda import bid_top2_cuda
+from .costmap.kernel_cuda import costmap_cuda
+
+#: (name, wrapper, CUDA source) of every kernel on the scheduling path.
+KERNELS = (
+    ("costmap", costmap_cuda, "costmap.cu"),
+    ("auction_bid", bid_top2_cuda, "auction_bid.cu"),
+)
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {name: fn.launches for name, fn, _ in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for _, fn, _ in KERNELS:
+        fn.launches = 0

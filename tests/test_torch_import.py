@@ -1,0 +1,96 @@
+"""repro_torch stands alone: importing it pulls in neither jax nor the
+reference package, its sources never import them, CUDA is never silently
+replaced by the CPU, and CPU tensors take the plain versions without
+touching the kernels' launch counters."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = (
+        "import sys, repro_torch, repro_torch.core.simulator, repro_torch.kernels\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
+    re.MULTILINE,
+)
+
+
+def test_sources_never_import_jax_or_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    hits = [
+        f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+        for p in files
+        for m in _FORBIDDEN.finditer(p.read_text())
+    ]
+    assert not hits, hits
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-CUDA error cannot be shown")
+    from repro_torch.core import simulator, topology, latency, workload
+    from repro_torch.device import resolve_device
+
+    topo = topology.Topology(16, 8, 2, slots_per_machine=2)
+    wl = workload.synth_workload(topo, 10, seed=0)
+    plane = latency.LatencyPlane.synthesize(topo, 10, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulator.Simulator(wl, plane, simulator.SimConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_take_plain_versions():
+    from repro_torch import kernels
+    from repro_torch.core import perf_model
+    from repro_torch.kernels.auction_bid import ops as bid_ops
+    from repro_torch.kernels.costmap import ops as cm_ops
+
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    lat = torch.from_numpy(rng.uniform(0, 900, size=(3, 40)).astype(np.float32))
+    cost = cm_ops.costmap(perf_model.perf_lut_table(), torch.zeros(3, dtype=torch.int32), lat)
+    assert cost.dtype == torch.int32
+    values = torch.from_numpy(-rng.integers(0, 50, size=(3, 40)).astype(np.float32))
+    prices = torch.zeros(40)
+    idx, best, second = bid_ops.bid_top2(values, prices, prices)
+    assert idx.dtype == torch.int32
+    assert kernels.launch_counts() == {"costmap": 0, "auction_bid": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.auction_bid.kernel_cuda import bid_top2_cuda
+    from repro_torch.kernels.costmap.kernel_cuda import costmap_cuda
+
+    x = torch.zeros((2, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        costmap_cuda(torch.zeros((4, 101)), torch.zeros(2, dtype=torch.int32), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        bid_top2_cuda(x, torch.zeros(3), torch.zeros(3))
