@@ -29,10 +29,36 @@ exits non-zero; nothing is caught):
               auction iterations), wall time, per-round algo_s, peak device
               memory, and the avg_app_perf_area next to the random
               baseline's on the same workload (paper Fig. 5).
+7. attention_kernels - flash_attention and decode_attention against their
+              plain versions on the card at the qwen3-0.6b serving shapes,
+              in the dtypes the serving path gives them (f32 prefill;
+              f32 query against a bf16 cache in decode) and with bf16
+              inputs; tolerance 2e-5 abs/rel when every input is f32 (as
+              tests/test_kernels_attention.py: the sums run in another
+              order), 2e-2 with bf16 inputs (one bf16 rounding of the
+              output). Times as in phase 3, plus library_ms: one
+              torch.nn.functional.scaled_dot_product_attention call on the
+              same inputs (a yardstick only; the port never calls it).
+8. serve    - qwen3-0.6b at full width (28 layers, reduce 1), seeded
+              float32 parameters and a bf16 cache: 8 requests of 1,024
+              prompt tokens, 64 generated (s_max 1,088), through
+              ``serve_batch`` on the card. Prefill seconds, decode ms per
+              step, tokens/s, peak device memory; launches must be exactly
+              28 flash and 28 * 63 decode. The kernels are checked again
+              against their plain versions on layer-0 tensors captured
+              from this run.
+9. serve_parity - the same path at reduce 8 with GQA restored (4 query
+              heads over 2 KV heads), 2 requests, 64-token prompts, 16
+              generated, the same parameters on the card and on the CPU:
+              logits within 2e-3 abs/rel at every step (f32 products summed
+              in another order; a K/V value may round to the neighbouring
+              bf16 step) and the greedy tokens equal.
 
 Then a ``{"kernels": [...]}`` line (one entry per kernel: route, source,
-the TPU kernel it replaces, launches in the full-width run, max abs error,
-kernel / plain / bound times at the main shape, library_ms) and, last,
+the TPU kernel it replaces, launches in the run of its main path - the
+full-width replay for the scheduler's kernels, the serve phase for the
+attention kernels - max abs error and tolerance, kernel / device / plain /
+bound / library times at the main shape) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Runs from a checkout (it imports ``src/repro_torch``); it needs no JAX and
@@ -41,6 +67,7 @@ no network, and exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,6 +83,7 @@ if str(ROOT / "src") not in sys.path:
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 SEED = 0
 N_REPS = 21
 N_PER_REP = 10
@@ -78,7 +106,25 @@ KERNEL_INFO = {
         "source": "src/repro_torch/csrc/auction_bid.cu",
         "replaces": "src/repro/kernels/auction_bid/kernel.py:71",
     },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+    },
+    "decode_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:67",
+    },
 }
+SCHEDULER_KERNELS = ("costmap", "auction_bid")
+
+# The LM serving path: qwen3-0.6b, full width; 8 requests of 1,024 prompt
+# tokens and 64 generated ones.
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
+ATT_TOL = {"f32": 2e-5, "bf16": 2e-2}
+PARITY_TOL = 2e-3
 NO_LIBRARY = (
     "no single PyTorch call computes it (torch.max has no runner-up, "
     "torch.topk ignores the second slot price)"
@@ -89,9 +135,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / F32_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -440,7 +486,7 @@ def phase_full(device="cuda", n_machines: int = 12_500, duration_s: int = 90) ->
         torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     sim, m, wall, counters = replay(topo, duration_s, device)
-    launches = kernels.launch_counts()
+    launches = {k: kernels.launch_counts()[k] for k in SCHEDULER_KERNELS}
     iters = int(counters.get("auction.iterations", 0))
     algo = np.asarray(m.algo_runtime_s, np.float64)
     if not (m.rounds > 0 and m.tasks_placed > 0 and np.isfinite(algo).all()):
@@ -476,7 +522,350 @@ def phase_full(device="cuda", n_machines: int = 12_500, duration_s: int = 90) ->
     return info
 
 
-def kernels_line(kern: dict, full: dict) -> dict:
+# --------------------------------------------------------------------- #
+# The LM serving path: attention kernels, full-width serve, parity
+
+
+_TORCH_DTYPES = {"f32": "float32", "bf16": "bfloat16"}
+
+
+def _dt(name):
+    import torch
+
+    return getattr(torch, _TORCH_DTYPES[name])
+
+
+def _att_peak(*dtypes) -> float:
+    """Peak rate for the inputs' type: f32 CUDA cores unless all are bf16."""
+    return BF16_OPS_PER_S if all(d == "bf16" for d in dtypes) else F32_OPS_PER_S
+
+
+def flash_bound(B, H, KVH, S, D, dt: str, causal: bool = True):
+    esize = 4 if dt == "f32" else 2
+    n_bytes = (2 * B * H * S * D + 2 * B * KVH * S * D) * esize  # q, o; k, v
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return bound_ms(n_bytes, 4 * B * H * D * pairs, _att_peak(dt))
+
+
+def decode_bound(H, KVH, D, lengths, q_dt: str, c_dt: str):
+    csize = 4 if c_dt == "f32" else 2
+    qsize = 4 if q_dt == "f32" else 2
+    total = int(np.sum(lengths))
+    B = len(lengths)
+    n_bytes = 2 * total * KVH * D * csize + 2 * B * H * D * qsize
+    return bound_ms(n_bytes, 4 * total * H * D, _att_peak(q_dt, c_dt))
+
+
+def _sdpa_decode_args(q, k_cache, v_cache, lengths):
+    """scaled_dot_product_attention's arguments for one-token decode: the
+    cache cast to q's dtype and a boolean length mask (made here, outside
+    any timed window)."""
+    import torch
+
+    S = k_cache.shape[2]
+    mask = (torch.arange(S, device=q.device)[None, :] < lengths[:, None].long())
+    return (q[:, :, None, :], k_cache.to(q.dtype), v_cache.to(q.dtype), mask[:, None, None, :])
+
+
+def _agree(what: str, got, want, tol: float) -> dict:
+    """Raises unless |got - want| <= tol + tol * |want| everywhere and got is
+    finite; returns the max abs error and the tolerance."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if not (bool(diff.le(tol + tol * want.float().abs()).all()) and got.isfinite().all()):
+        raise AssertionError(f"{what} disagrees with its plain version: max abs err {err}, "
+                             f"tolerance {tol}")
+    return {"max_abs_err": err, "tolerance": tol}
+
+
+def check_flash(q, k, v, dt: str) -> dict:
+    from repro_torch.kernels.flash_attention import kernel_cuda, ref
+
+    return _agree(f"flash_attention ({dt})", kernel_cuda.flash_attention_cuda(q, k, v),
+                  ref.attention_ref(q, k, v), ATT_TOL[dt])
+
+
+def check_decode(q, k_cache, v_cache, lengths, q_dt: str, c_dt: str) -> dict:
+    from repro_torch.kernels.decode_attention import kernel_cuda, ref
+
+    return _agree(f"decode_attention ({q_dt} q, {c_dt} cache)",
+                  kernel_cuda.decode_attention_cuda(q, k_cache, v_cache, lengths),
+                  ref.decode_attention_ref(q, k_cache, v_cache, lengths), ATT_TOL[q_dt])
+
+
+def phase_attention_kernels() -> dict:
+    """Both attention kernels against their plain versions at the serving
+    shapes; the first row of each is the dtype combination serving uses."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import kernel_cuda as dec_k
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel_cuda as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cfg = configs.get_config(SERVE_ARCH)
+    B, H, KVH, D = SERVE_REQUESTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S, s_max = SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN
+    rng = np.random.default_rng(SEED)
+    out = {"flash_attention": [], "decode_attention": []}
+
+    def randn(shape, dt):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to("cuda", _dt(dt))
+
+    for dt in ("f32", "bf16"):
+        q, k, v = randn((B, H, S, D), dt), randn((B, KVH, S, D), dt), randn((B, KVH, S, D), dt)
+        row = {"shape": [B, H, KVH, S, D], "dtype": dt, "causal": True,
+               **check_flash(q, k, v, dt)}
+        b_ms, b_by = flash_bound(B, H, KVH, S, D, dt)
+        row.update(
+            kernel_ms=time_ms(lambda: fa_k.flash_attention_cuda(q, k, v)),
+            device_ms=device_ms(lambda: fa_k.flash_attention_cuda(q, k, v),
+                                ("flash_attention_kernel",)),
+            plain_ms=time_ms(lambda: fa_ref.attention_ref(q, k, v)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)),
+        )
+        out["flash_attention"].append(row)
+        del q, k, v
+
+    # Ragged valid lengths around the serving run's (1,025 .. 1,088).
+    lengths_np = rng.integers(S + 1, s_max + 1, size=B).astype(np.int32)
+    lengths_np[0], lengths_np[-1] = S + 1, s_max
+    lengths = torch.from_numpy(lengths_np).to("cuda")
+    for q_dt, c_dt in (("f32", "bf16"), ("bf16", "bf16"), ("f32", "f32")):
+        q = randn((B, H, D), q_dt)
+        kc, vc = randn((B, KVH, s_max, D), c_dt), randn((B, KVH, s_max, D), c_dt)
+        row = {"shape": [B, H, KVH, s_max, D], "q_dtype": q_dt, "cache_dtype": c_dt,
+               "lengths": lengths_np.tolist(), **check_decode(q, kc, vc, lengths, q_dt, c_dt)}
+        b_ms, b_by = decode_bound(H, KVH, D, lengths_np, q_dt, c_dt)
+        lib_args = _sdpa_decode_args(q, kc, vc, lengths)
+        row.update(
+            kernel_ms=time_ms(lambda: dec_k.decode_attention_cuda(q, kc, vc, lengths)),
+            device_ms=device_ms(lambda: dec_k.decode_attention_cuda(q, kc, vc, lengths),
+                                ("decode_partial_kernel", "decode_combine_kernel")),
+            plain_ms=time_ms(lambda: dec_ref.decode_attention_ref(q, kc, vc, lengths)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                *lib_args[:3], attn_mask=lib_args[3], enable_gqa=True)),
+        )
+        out["decode_attention"].append(row)
+        del q, kc, vc, lib_args
+
+    emit({"phase": "attention_kernels", "tolerance": ATT_TOL,
+          "library": "torch.nn.functional.scaled_dot_product_attention (yardstick only)",
+          "kernels": out})
+    return out
+
+
+class _Capture:
+    """Wraps an ops function: clones the arguments of the calls numbered in
+    ``at`` (0-based), then calls through unchanged."""
+
+    def __init__(self, fn, at):
+        self.fn, self.at, self.n, self.got = fn, set(at), 0, {}
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        if self.n in self.at:
+            self.got[self.n] = [a.clone() if torch.is_tensor(a) else a for a in args]
+        self.n += 1
+        return self.fn(*args, **kw)
+
+
+def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
+                prompt_len: int = SERVE_PROMPT, gen: int = SERVE_GEN) -> dict:
+    """The serving run; ``device="cpu"`` and a larger ``reduce`` rehearse its
+    control flow on the CPU (no launches, no kernel checks there)."""
+    import torch
+
+    from repro_torch import configs, kernels
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    cfg = serve.reduce_config(configs.get_config(SERVE_ARCH), reduce)
+    lm = LM(cfg)
+    L, B, P, G = cfg.n_layers, requests, prompt_len, gen
+    on_card = device == "cuda"
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    if tf32:
+        raise AssertionError("TF32 matmuls are on; the f32 projections must stay f32")
+    params = lm.init(torch.Generator(device=device).manual_seed(SEED), dtype=torch.float32)
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(B, P))
+    serve.serve_batch(lm, params, prompts[:, :64], 4)  # warm-up: cuBLAS, libraries
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    fa_cap = _Capture(fa_ops.flash_attention, [0])
+    dec_cap = _Capture(dec_ops.decode_attention, [0, L * (G - 2)])
+    fa_ops.flash_attention, dec_ops.decode_attention = fa_cap, dec_cap
+    try:
+        kernels.reset_launch_counts()
+        timings = {}
+        tokens = serve.serve_batch(lm, params, prompts, G, timings=timings)
+        launches = kernels.launch_counts()
+    finally:
+        fa_ops.flash_attention, dec_ops.decode_attention = fa_cap.fn, dec_cap.fn
+    peak = int(torch.cuda.max_memory_allocated()) if on_card else None
+    want = {"flash_attention": L, "decode_attention": L * (G - 1)}
+    got = {k: launches[k] for k in want}
+    if on_card and got != want:
+        raise AssertionError(f"serve launches {got}, expected {want}")
+    if tokens.shape != (B, G) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"serve tokens of shape {tokens.shape} out of range")
+
+    # The kernels against their plain versions on tensors of this run.
+    captured = {}
+    if on_card:
+        q, k, v = fa_cap.got[0]
+        captured["flash_attention"] = {"layer": 0, "shape": list(q.shape),
+                                       **check_flash(q, k, v, "f32")}
+    for n, label in ((0, "first_step"), (L * (G - 2), "last_step")):
+        qd, kc, vc, lens = dec_cap.got[n]
+        captured[f"decode_attention_{label}"] = {"layer": 0, "lengths": lens.tolist()}
+        if on_card:
+            captured[f"decode_attention_{label}"].update(
+                check_decode(qd, kc, vc, lens, "f32", "bf16"))
+    cache_bytes = 2 * L * B * cfg.n_kv_heads * (P + G) * cfg.head_dim * 2
+    total_s = timings["prefill_s"] + timings["decode_s"]
+    profile = decode_profile(lm, params, prompts, G)
+    step_ms = timings["decode_s"] * 1e3 / timings["decode_steps"]
+    if profile["device_busy_ms_per_step"] is not None:
+        # Against the unprofiled step time of the run above.
+        profile["device_idle_share"] = 1.0 - profile["device_busy_ms_per_step"] / step_ms
+    info = {
+        "phase": "serve",
+        "arch": cfg.name,
+        "layers": L, "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "vocab": cfg.vocab_size,
+        "requests": B, "prompt_len": P, "gen": G, "s_max": P + G,
+        "param_dtype": "float32", "cache_dtype": "bfloat16", "allow_tf32": tf32,
+        "prefill_s": timings["prefill_s"],
+        "decode_s": timings["decode_s"],
+        "decode_ms_per_step": step_ms,
+        "tokens_per_s": B * G / total_s,
+        "decode_tokens_per_s": B * timings["decode_steps"] / timings["decode_s"],
+        "prefill_tokens_per_s": B * P / timings["prefill_s"],
+        "param_bytes": param_bytes,
+        "cache_bytes": cache_bytes,
+        "max_memory_allocated": peak,
+        "launches": got,
+        "captured_checks": captured,
+        "decode_profile": profile,
+        "tokens_head": tokens[:2, :8].tolist(),
+    }
+    emit(info)
+    return info
+
+
+def decode_profile(lm, params, prompts, gen: int, steps: int = 4) -> dict:
+    """Where a decode step's time goes: a torch.profiler trace (CPU and
+    CUDA) of ``steps`` decode steps after a fresh prefill of the same
+    prompts. Host wall per step against the card's busy time per step
+    (sum of kernel times; kernels do not overlap on one stream), and the
+    kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    device = params["embed"].device
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device=device)
+    logits, cache, lengths = lm.prefill(params, {"tokens": tokens}, s_max=prompts.shape[1] + gen)
+    tok = logits.argmax(-1)[:, None]
+    sync()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache, lengths = lm.decode_step(params, {"tokens": tok}, cache, lengths)
+            tok = logits.argmax(-1)[:, None]
+        sync()
+        wall = time.perf_counter() - t0
+    by_kernel, host, launches = {}, {}, 0
+    for evt in prof.key_averages():
+        dev = getattr(evt, "device_time_total", 0.0) or 0.0
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            if dev > 0:
+                by_kernel[evt.key] = dev / steps / 1e3
+                launches += evt.count
+        elif evt.self_cpu_time_total > 0:
+            host[evt.key] = (evt.self_cpu_time_total / steps / 1e3, evt.count / steps)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
+    return {
+        "steps": steps,
+        "profiled_wall_ms_per_step": wall * 1e3 / steps,
+        "device_busy_ms_per_step": sum(by_kernel.values()) if by_kernel else None,
+        "kernels_per_step": launches / steps,
+        "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
+        "top_host_ops_ms_calls_per_step": [[k[:60], *v] for k, v in top_host],
+    }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_serve_parity(device="cuda") -> dict:
+    import torch
+
+    from repro_torch import configs, kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models.layers import tree_map
+
+    cfg = dataclasses.replace(serve.reduce_config(configs.get_config(SERVE_ARCH), 8),
+                              n_heads=4, n_kv_heads=2)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(SEED), dtype=torch.float32)
+    prompts = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, size=(2, 64))
+    t0 = time.perf_counter()
+    cpu_tokens, cpu_logits = serve.serve_batch(lm, params, prompts, 16, return_logits=True)
+    cpu_s = time.perf_counter() - t0
+    card = tree_map(lambda t: t.to(device), params)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, logits = serve.serve_batch(lm, card, prompts, 16, return_logits=True)
+    card_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    want = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * 15}
+    got = {k: launches[k] for k in want}
+    diff = np.abs(logits - cpu_logits)
+    ok = bool((diff <= PARITY_TOL + PARITY_TOL * np.abs(cpu_logits)).all())
+    info = {
+        "phase": "serve_parity",
+        "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                   "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                   "vocab": cfg.vocab_size},
+        "requests": 2, "prompt_len": 64, "gen": 16,
+        "max_abs_logit_diff": float(diff.max()),
+        "max_abs_logit": float(np.abs(cpu_logits).max()),
+        "tolerance": PARITY_TOL,
+        "tokens_equal": bool((tokens == cpu_tokens).all()),
+        "launches": got,
+        "card_s": card_s, "cpu_s": cpu_s,
+    }
+    emit(info)
+    if not (ok and info["tokens_equal"] and np.isfinite(logits).all()) or (
+        device == "cuda" and got != want
+    ):
+        raise AssertionError(f"serve parity failed: {info}")
+    return info
+
+
+def kernels_line(kern: dict, full: dict, att: dict, served: dict) -> dict:
     entries = []
     for name, rows in kern.items():
         main = next(r for r in rows if tuple(r["shape"]) == MAIN_SHAPE)
@@ -495,6 +884,23 @@ def kernels_line(kern: dict, full: dict) -> dict:
             "shape": main["shape"],
             "shapes": rows,
         })
+    for name, rows in att.items():
+        main = rows[0]  # the dtypes the serving path uses
+        entries.append({
+            "name": name,
+            **KERNEL_INFO[name],
+            "launches": int(served["launches"][name]),
+            "max_abs_err": main["max_abs_err"],
+            "tolerance": main["tolerance"],
+            "ms": main["kernel_ms"],
+            "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shape": main["shape"],
+            "shapes": rows,
+        })
     return {"kernels": entries}
 
 
@@ -510,10 +916,13 @@ def main() -> int:
     info = phase_device()
     phase_build()
     kern = phase_kernels()
+    att = phase_attention_kernels()
     phase_round()
     phase_parity()
     full = phase_full()
-    emit(kernels_line(kern, full))
+    served = phase_serve()
+    phase_serve_parity()
+    emit(kernels_line(kern, full, att, served))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

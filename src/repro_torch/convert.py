@@ -1,5 +1,7 @@
 """Carry the reference package's state across to this package.
 
+`lm_params_from_reference` carries an LM's parameter pytree across.
+
 The scheduler has no weights; its state is the perf LUT, the `Topology`,
 the `PolicyParams`, the `LatencyPlane` (topology, series, seed, dynamic
 events) and the `Workload` job list. `from_reference` builds this
@@ -122,3 +124,33 @@ def from_reference(obj):
     if hasattr(obj, "__array__"):
         return torch.from_numpy(np.array(obj))
     raise TypeError(f"no repro_torch counterpart for {type(obj).__name__}")
+
+
+def _tensor(x) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_reference(tree, lm=None):
+    """The port's LM parameters from the reference's parameter pytree.
+
+    ``tree`` is the reference's nested dict of arrays (numpy, or anything
+    ``np.asarray`` takes), keyed as the reference keys it
+    (``blocks/pos0_dense/attn/wq`` is ``tree["blocks"]["pos0_dense"]["attn"]
+    ["wq"]``, stacked (n_superblocks, ...)). The port keeps the same keys,
+    shapes, dtypes and ``x @ W`` layouts, so this is a copy into CPU
+    tensors. With ``lm`` (a `repro_torch.models.LM`), the keys and shapes
+    are checked against ``lm.param_specs()``.
+    """
+    from .models.layers import tree_map
+
+    params = tree_map(_tensor, dict(tree))
+    if lm is not None:
+        want = tree_map(lambda p: tuple(p.shape), lm.param_specs())
+        got = tree_map(lambda t: tuple(t.shape), params)
+        if got != want:
+            raise ValueError(f"reference parameters do not match {lm.cfg.name}: "
+                             f"got {got}, expected {want}")
+    return params

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the scheduler's hot spots (Hopper, sm_90a).
+"""Hand-written CUDA kernels for the port's hot spots (Hopper, sm_90a).
 
 Each kernel package has:
   kernel_cuda.py - ctypes wrapper of the CUDA C++ source in ``csrc/``,
@@ -10,17 +10,27 @@ Each kernel package has:
                  replaces repro.kernels.costmap.kernel.costmap_pallas
   auction_bid  - per-row top-2 bid of the auction solver; replaces
                  repro.kernels.auction_bid.kernel.bid_top2_pallas
+  flash_attention  - blocked causal GQA attention (LM prefill); replaces
+                 repro.kernels.flash_attention.kernel.flash_attention_pallas
+  decode_attention - one-token GQA attention against a KV cache (LM
+                 decode); replaces
+                 repro.kernels.decode_attention.kernel.decode_attention_pallas
 
 `build` compiles the sources with nvcc on first use.
 """
 
 from .auction_bid.kernel_cuda import bid_top2_cuda
 from .costmap.kernel_cuda import costmap_cuda
+from .decode_attention.kernel_cuda import decode_attention_cuda
+from .flash_attention.kernel_cuda import flash_attention_cuda
 
-#: (name, wrapper, CUDA source) of every kernel on the scheduling path.
+#: (name, wrapper, CUDA source) of every kernel of the port: the scheduling
+#: path's two, then the LM serving path's two.
 KERNELS = (
     ("costmap", costmap_cuda, "costmap.cu"),
     ("auction_bid", bid_top2_cuda, "auction_bid.cu"),
+    ("flash_attention", flash_attention_cuda, "flash_attention.cu"),
+    ("decode_attention", decode_attention_cuda, "decode_attention.cu"),
 )
 
 

@@ -1,0 +1,178 @@
+"""The decoder LM: a loop over stacked layers of a per-arch layer pattern.
+
+Port of `repro.models.lm` for serving. Parameters are a nested dict of
+tensors with the reference's keys and shapes: each pattern position's
+parameters are stacked along a leading layer axis
+(``params["blocks"]["pos0_dense"]["attn"]["wq"]`` is (n_superblocks, D,
+q_dim)), and the reference's ``jax.lax.scan`` over that axis becomes a
+Python loop. Pattern-remainder layers run unstacked after the loop.
+
+API (functions over a params dict, like the reference's):
+  init(generator, dtype)          -> params
+  forward(params, batch)          -> (B, S, V) float32 logits
+  init_cache(batch, s_max)        -> decode cache (bf16 K/V by default)
+  prefill(params, batch, s_max)   -> (last_logits, cache, lengths)
+  decode_step(params, batch, cache, lengths) -> (logits, cache, lengths + 1)
+
+The decode cache is updated in place (the reference returns a new one).
+``loss`` and ``remat`` come with the training slice; sharding constraints
+have no counterpart on one card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..device import resolve_device
+from . import blocks
+from .layers import Param, init_params, rms_norm, stack_specs, tree_map
+
+
+@dataclasses.dataclass
+class LM:
+    cfg: ArchConfig
+
+    # ------------------------------------------------------------- params
+
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        D, V = cfg.d_model, cfg.vocab_size
+        specs: Dict[str, Any] = {}
+        # sigma = D^-0.5 keeps tied-head logits at unit variance.
+        specs["embed"] = Param((V, D), ("vocab", "embed"), scale=D**-0.5)
+        specs["blocks"] = {
+            f"pos{i}_{kind}": stack_specs(blocks.block_specs(kind, cfg), cfg.n_superblocks)
+            for i, kind in enumerate(cfg.pattern)
+        }
+        for j, kind in enumerate(cfg.remainder):
+            specs[f"rem{j}_{kind}"] = blocks.block_specs(kind, cfg)
+        specs["final_norm"] = Param((D,), ("embed",), init="zeros")
+        if not cfg.tie_embeddings:
+            specs["head"] = Param((D, V), ("embed", "vocab"))
+        return specs
+
+    def init(self, generator: torch.Generator, dtype: Optional[torch.dtype] = None):
+        """Random parameters on the generator's device (bf16 by default)."""
+        return init_params(self.param_specs(), generator, dtype or torch.bfloat16)
+
+    # ------------------------------------------------------------- forward
+
+    def _embed(self, params, batch):
+        if self.cfg.embed_inputs:
+            return batch["embeds"]  # (B, S, D) frontend stub
+        return params["embed"][batch["tokens"]]
+
+    def _logits(self, params, x):
+        head = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        return (x @ head).float()
+
+    def _layers(self, params):
+        """Each superblock's parameters, {pattern key: block params}."""
+        for l in range(self.cfg.n_superblocks):
+            yield tree_map(lambda t: t[l], params["blocks"])
+
+    def hidden_states(self, params, batch):
+        """(B, S) tokens -> (B, S, D) after the final norm."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        for layer_p in self._layers(params):
+            for i, kind in enumerate(cfg.pattern):
+                x, _ = blocks.apply_block_seq(kind, cfg, layer_p[f"pos{i}_{kind}"], x, positions)
+        for j, kind in enumerate(cfg.remainder):
+            x, _ = blocks.apply_block_seq(kind, cfg, params[f"rem{j}_{kind}"], x, positions)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def forward(self, params, batch):
+        """(B, S) tokens -> (B, S, V) float32 logits."""
+        return self._logits(params, self.hidden_states(params, batch))
+
+    # ------------------------------------------------------------- decode
+
+    def init_cache(self, batch: int, s_max: int, dtype: Optional[torch.dtype] = None,
+                   device="cuda"):
+        """Zeroed decode cache. ``dtype`` overrides the bf16 defaults (tests
+        use float32 for exact prefill -> decode equivalence)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+
+        def zeros(shape, dt):
+            dt = dtype if (dtype is not None and dt == torch.bfloat16) else dt
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        cache: Dict[str, Any] = {"blocks": {}}
+        for i, kind in enumerate(cfg.pattern):
+            spec = blocks.cache_spec(kind, cfg, batch, s_max)
+            cache["blocks"][f"pos{i}_{kind}"] = {
+                k: zeros((cfg.n_superblocks,) + shape, dt) for k, (shape, dt) in spec.items()
+            }
+        for j, kind in enumerate(cfg.remainder):
+            spec = blocks.cache_spec(kind, cfg, batch, s_max)
+            cache[f"rem{j}_{kind}"] = {k: zeros(shape, dt) for k, (shape, dt) in spec.items()}
+        return cache
+
+    def decode_step(self, params, batch, cache, lengths):
+        """One new token for every sequence in the batch.
+
+        batch: {"tokens": (B, 1)}. Returns (logits (B, V), cache, lengths + 1);
+        the cache is written in place.
+        """
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        positions = lengths[:, None]  # (B, 1)
+        for l, layer_p in enumerate(self._layers(params)):
+            for i, kind in enumerate(cfg.pattern):
+                key = f"pos{i}_{kind}"
+                layer_c = {name: t[l] for name, t in cache["blocks"][key].items()}
+                x, _ = blocks.apply_block_decode(
+                    kind, cfg, layer_p[key], x, positions, layer_c, lengths
+                )
+        for j, kind in enumerate(cfg.remainder):
+            key = f"rem{j}_{kind}"
+            x, _ = blocks.apply_block_decode(
+                kind, cfg, params[key], x, positions, cache[key], lengths
+            )
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x)[:, 0]
+        return logits, cache, lengths + 1
+
+    def prefill(self, params, batch, s_max: int, cache_dtype: Optional[torch.dtype] = None):
+        """Run the prompt through the model, building a decode cache.
+
+        Attention runs on the prompt's own K/V in the parameters' dtype; the
+        cache receives them cast to its dtype afterwards, as in the
+        reference. Only the last position's logits are formed.
+        """
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        cache = self.init_cache(B, s_max, dtype=cache_dtype, device=x.device)
+        for l, layer_p in enumerate(self._layers(params)):
+            for i, kind in enumerate(cfg.pattern):
+                key = f"pos{i}_{kind}"
+                x, got = blocks.apply_block_seq(kind, cfg, layer_p[key], x, positions)
+                for name, t in got.items():
+                    _place(cache["blocks"][key][name][l], t)
+        for j, kind in enumerate(cfg.remainder):
+            key = f"rem{j}_{kind}"
+            x, got = blocks.apply_block_seq(kind, cfg, params[key], x, positions)
+            for name, t in got.items():
+                _place(cache[key][name], t)
+        x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x)[:, 0]
+        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        return logits, cache, lengths
+
+
+def _place(buf: torch.Tensor, got: torch.Tensor) -> torch.Tensor:
+    """Write a prefill cache entry into the preallocated decode buffer, in
+    place: K/V (.., KVH, S, Dh) into (.., KVH, S_max, Dh) at offset 0, cast
+    to the buffer's dtype."""
+    buf[tuple(slice(0, n) for n in got.shape)].copy_(got)
+    return buf

@@ -1,6 +1,8 @@
 """repro_torch on the card: each CUDA kernel against its plain version on
-the same CUDA tensors (exact: tolerance 0, index included), the kernels'
-input checks, and a small replay on CUDA against the same replay on CPU.
+the same CUDA tensors (the scheduler's kernels exact: tolerance 0, index
+included; the attention kernels within 2e-5 in f32 and 2e-2 with 16-bit
+inputs, the order of the sums differing), the kernels' input checks, a
+small replay and a small serve on CUDA against the same on CPU.
 
 Marked ``cuda``; every test skips without a CUDA device. On the card:
 
@@ -98,3 +100,122 @@ def test_small_replay_card_equals_cpu(cuda):
     for f in ("tasks_placed", "tasks_migrated", "rounds", "placement_latency_s",
               "response_time_s", "per_job_perf", "migrated_pct_per_round"):
         assert getattr(a, f) == getattr(b, f), f
+
+
+_ATT_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _att_tol(*dtypes):
+    return 2e-5 if all(d == "f32" for d in dtypes) else 2e-2
+
+
+@pytest.mark.parametrize(
+    "B,H,KVH,S,D,dt,causal",
+    [
+        (1, 2, 2, 128, 64, "f32", True),
+        (2, 4, 2, 100, 128, "f32", True),  # ragged tail
+        (1, 8, 1, 64, 128, "f32", False),  # MQA, full
+        (2, 4, 2, 1, 16, "f32", True),
+        (2, 4, 2, 257, 32, "bf16", True),
+        (1, 4, 4, 130, 64, "f16", False),
+        (2, 16, 8, 1024, 128, "f32", True),  # qwen3-0.6b per-layer prefill
+    ],
+)
+def test_flash_kernel_equals_plain(cuda, B, H, KVH, S, D, dt, causal):
+    from repro_torch.kernels.flash_attention import kernel_cuda, ref
+
+    rng = np.random.default_rng(B * 1000 + S + D)
+    q, k, v = (
+        torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda, _ATT_DTYPES[dt])
+        for shape in ((B, H, S, D), (B, KVH, S, D), (B, KVH, S, D))
+    )
+    got = kernel_cuda.flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = _att_tol(dt)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_takes_strided_heads(cuda):
+    """q, k, v as the (B, S, H, D) -> (B, H, S, D) views the blocks pass."""
+    from repro_torch.kernels.flash_attention import kernel_cuda, ref
+
+    rng = np.random.default_rng(11)
+    B, S, H, KVH, D = 2, 96, 4, 2, 64
+    q = torch.from_numpy(rng.normal(0, 1, (B, S, H, D)).astype(np.float32)).to(cuda)
+    kv = torch.from_numpy(rng.normal(0, 1, (B, S, 2 * KVH, D)).astype(np.float32)).to(cuda)
+    qv, kt, vt = q.transpose(1, 2), kv[:, :, :KVH].transpose(1, 2), kv[:, :, KVH:].transpose(1, 2)
+    got = kernel_cuda.flash_attention_cuda(qv, kt, vt)
+    want = ref.attention_ref(qv.contiguous(), kt.contiguous(), vt.contiguous())
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize(
+    "B,H,KVH,S,D,q_dt,c_dt",
+    [
+        (3, 8, 2, 256, 64, "f32", "f32"),
+        (8, 16, 8, 1088, 128, "f32", "bf16"),  # qwen3-0.6b serving
+        (2, 4, 1, 100, 128, "bf16", "bf16"),
+        (2, 4, 2, 64, 16, "f32", "f32"),
+        (1, 4, 4, 300, 32, "f16", "f16"),
+    ],
+)
+def test_decode_kernel_equals_plain(cuda, B, H, KVH, S, D, q_dt, c_dt):
+    from repro_torch.kernels.decode_attention import kernel_cuda, ref
+
+    rng = np.random.default_rng(B * 100 + S + D)
+    q = torch.from_numpy(rng.normal(0, 1, (B, H, D)).astype(np.float32)).to(cuda, _ATT_DTYPES[q_dt])
+    kc, vc = (
+        torch.from_numpy(rng.normal(0, 1, (B, KVH, S, D)).astype(np.float32)).to(
+            cuda, _ATT_DTYPES[c_dt])
+        for _ in range(2)
+    )
+    lengths = rng.integers(1, S + 1, size=B)
+    lengths[0], lengths[-1] = 1, S
+    lengths = torch.from_numpy(lengths.astype(np.int32)).to(cuda)
+    got = kernel_cuda.decode_attention_cuda(q, kc, vc, lengths)
+    want = ref.decode_attention_ref(q, kc, vc, lengths)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = _att_tol(q_dt) if q_dt != "f32" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_attention_kernels_refuse_bad_inputs(cuda):
+    from repro_torch.kernels.decode_attention.kernel_cuda import decode_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel_cuda import flash_attention_cuda
+
+    x = torch.zeros((1, 2, 8, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(x, x, x)
+    y = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(y, y.half(), y)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        decode_attention_cuda(y[:, :, 0], y, y, lengths.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention_cuda(y[:, :, 0], y.transpose(2, 3).contiguous().transpose(2, 3),
+                              y, lengths)
+
+
+def test_small_serve_card_equals_cpu(cuda):
+    import dataclasses
+
+    from repro_torch import configs, kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, layers
+
+    cfg = dataclasses.replace(serve.reduce_config(configs.get_config("qwen3-0.6b"), 8),
+                              n_heads=4, n_kv_heads=2)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(5), dtype=torch.float32)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, size=(2, 40))
+    cpu_tokens, cpu_logits = serve.serve_batch(lm, params, prompts, 6, return_logits=True)
+    kernels.reset_launch_counts()
+    card = layers.tree_map(lambda t: t.to(cuda), params)
+    tokens, logits = serve.serve_batch(lm, card, prompts, 6, return_logits=True)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["decode_attention"] == cfg.n_layers * 5
+    np.testing.assert_array_equal(tokens, cpu_tokens)
+    np.testing.assert_allclose(logits, cpu_logits, atol=2e-3, rtol=2e-3)

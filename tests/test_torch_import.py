@@ -21,6 +21,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, repro_torch, repro_torch.core.simulator, repro_torch.kernels\n"
+        "import repro_torch.launch.serve, repro_torch.models, repro_torch.convert\n"
+        "import repro_torch.configs; repro_torch.configs.list_archs()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -82,7 +84,9 @@ def test_cpu_tensors_take_plain_versions():
     prices = torch.zeros(40)
     idx, best, second = bid_ops.bid_top2(values, prices, prices)
     assert idx.dtype == torch.int32
-    assert kernels.launch_counts() == {"costmap": 0, "auction_bid": 0}
+    assert kernels.launch_counts() == {
+        "costmap": 0, "auction_bid": 0, "flash_attention": 0, "decode_attention": 0,
+    }
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -94,3 +98,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         costmap_cuda(torch.zeros((4, 101)), torch.zeros(2, dtype=torch.int32), x)
     with pytest.raises(ValueError, match="CUDA"):
         bid_top2_cuda(x, torch.zeros(3), torch.zeros(3))
+
+
+def test_serve_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-CUDA error cannot be shown")
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch import configs
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--reduce", "8", "--requests", "1", "--prompt-len", "4", "--gen", "2"])
+    lm = LM(serve.reduce_config(configs.get_config("qwen3-0.6b"), 8))
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_cache(1, 8)
+
+
+def test_attention_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.decode_attention.kernel_cuda import decode_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel_cuda import flash_attention_cuda
+
+    x = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_cuda(x[:, :, 0], x, x, torch.ones(1, dtype=torch.int32))
