@@ -8,8 +8,8 @@ exits non-zero; nothing is caught):
 
 1. device   - ``nvidia-smi`` name and power limit (also printed raw, as
               nvidia-smi gives it), torch and CUDA versions.
-2. build    - nvcc builds every kernel source of the scheduling path at
-              once (sm_90a), seconds taken and ptxas' register counts.
+2. build    - nvcc builds every kernel source of the port at once
+              (sm_90a), seconds taken and ptxas' register counts.
 3. kernels  - each kernel against its plain PyTorch version on the card at
               the main path's shapes (exact equality required: tolerance
               0, index mismatches 0; boundary latencies and bid rows with
@@ -53,13 +53,47 @@ exits non-zero; nothing is caught):
               logits within 2e-3 abs/rel at every step (f32 products summed
               in another order; a K/V value may round to the neighbouring
               bf16 step) and the greedy tokens equal.
+10. recurrent_kernels - rglru_scan and rwkv6_scan against their plain
+              versions on the card: the RG-LRU at recurrentgemma-2b's
+              prefill shape (8, 2048, 2560) f32 and at a ragged one with a
+              given state; RWKV-6 at rwkv6-7b's prefill shape (8, 64, 1024,
+              64) f32 and at T = 1 with the state given and updated in place
+              (its decode step); tolerance 1e-5 (RG-LRU) and 1e-4 (RWKV-6)
+              abs/rel, as tests/test_kernels_scans.py. Flash attention at
+              recurrentgemma-2b's prefill, (8, 10 / 1, 2048, 256) f32 causal,
+              and decode attention at its decode, G = 10, head_dim 256, f32
+              query against a bf16 ring cache of 2,048, tolerance 2e-5.
+              Times as in phase 7; library_ms null for the scans (no single
+              PyTorch call computes either recurrence).
+11. serve_recurrentgemma - recurrentgemma-2b at full width (26 layers,
+              d_model 2,560, MQA 10 / 1 heads of 256, window 2,048, V
+              256,000), seeded f32 parameters, bf16 K/V and conv history:
+              8 requests of 2,048 prompt tokens (the window, exactly), 64
+              generated (s_max 2,112: every decode step writes across the
+              ring's wrap). Launches exactly 18 rglru_scan, 8 flash and
+              8 * 63 decode; measures and checks as phase 8.
+12. serve_rwkv - rwkv6-7b at full width (32 layers, d_model 4,096, 64 heads
+              of 64, d_ff 14,336, V 65,536), seeded f32 parameters: 8 x
+              (1,024 + 64) tokens; launches exactly 32 + 32 * 63 rwkv6_scan.
+13. recurrent_parity - each of the two at reduce 8, card against CPU on the
+              same parameters, 2 requests, 16 generated (recurrentgemma
+              from 160-token prompts, longer than its reduced window of 128,
+              so its chunk-pair attention and ring wrap run; rwkv6 from 64):
+              greedily with a float32 cache, logits within 2e-3 abs/rel at
+              every step and the tokens equal; then ``serve_batch`` with its
+              bf16 cache, whose logit difference and token equality are
+              reported, not held (a value one f32 bit apart may round to
+              the neighbouring bf16 step, and the recurrent states carry
+              such steps on: rwkv6 re-rounds whole activation rows, its
+              token shifts, at every step).
 
 Then a ``{"kernels": [...]}`` line (one entry per kernel: route, source,
 the TPU kernel it replaces, launches in the run of its main path - the
-full-width replay for the scheduler's kernels, the serve phase for the
-attention kernels - max abs error and tolerance, kernel / device / plain /
-bound / library times at the main shape) and, last,
-``{"ok": true, "device": {...}}``.
+full-width replay for the scheduler's kernels, the qwen3-0.6b serve for
+the attention kernels (with the recurrentgemma serve's beside them), the
+recurrentgemma and rwkv6 serves for the scans - max abs error and
+tolerance, kernel / device / plain / bound / library times at the main
+shape) and, last, ``{"ok": true, "device": {...}}``.
 
 Runs from a checkout (it imports ``src/repro_torch``); it needs no JAX and
 no network, and exits non-zero without a CUDA device.
@@ -116,8 +150,19 @@ KERNEL_INFO = {
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:67",
     },
+    "rglru_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:59",
+    },
+    "rwkv6_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:66",
+    },
 }
 SCHEDULER_KERNELS = ("costmap", "auction_bid")
+SERVE_KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "rwkv6_scan")
 
 # The LM serving path: qwen3-0.6b, full width; 8 requests of 1,024 prompt
 # tokens and 64 generated ones.
@@ -125,6 +170,25 @@ SERVE_ARCH = "qwen3-0.6b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
 ATT_TOL = {"f32": 2e-5, "bf16": 2e-2}
 PARITY_TOL = 2e-3
+# The recurrent serving paths at full width. recurrentgemma-2b's prompts
+# fill its 2,048-token window: flash runs at S = 2,048 and every decode step
+# writes across the ring's wrap.
+RECURRENT_SERVES = {
+    "recurrentgemma-2b": dict(phase="serve_recurrentgemma", requests=8, prompt_len=2048,
+                              gen=64),
+    "rwkv6-7b": dict(phase="serve_rwkv", requests=8, prompt_len=1024, gen=64),
+}
+RECURRENT_PARITY_PROMPT = {"recurrentgemma-2b": 160, "rwkv6-7b": 64}
+SCAN_TOL = {"rglru_scan": 1e-5, "rwkv6_scan": 1e-4}
+RGLRU_SHAPES = ((8, 2048, 2560), (3, 1000, 2500))  # (B, T, D): prefill, ragged
+RWKV_SHAPE = (8, 64, 1024, 64)  # (B, H, T, N), prefill; decode at T = 1
+# Operations per element or per state entry, counted from the kernels.
+RGLRU_OPS = 8  # 2*la, expm1, negate, sqrt, exp, a*h, mult*gx, add
+RWKV_OPS = 7  # k*v, u*kv, S+, *r, o+, w*S, +kv
+NO_SCAN_LIBRARY = (
+    "no single PyTorch call computes either recurrence (a sequential scan "
+    "whose decay depends on the data)"
+)
 NO_LIBRARY = (
     "no single PyTorch call computes it (torch.max has no runner-up, "
     "torch.topk ignores the second slot price)"
@@ -660,6 +724,159 @@ def phase_attention_kernels() -> dict:
     return out
 
 
+def rglru_bound(B, T, D, dt: str = "f32", with_h0: bool = False):
+    esize = 4 if dt == "f32" else 2
+    n_bytes = 3 * B * T * D * esize + B * D * 4 * (2 if with_h0 else 1)  # la, gx, out; h
+    return bound_ms(n_bytes, RGLRU_OPS * B * T * D)
+
+
+def rwkv6_bound(B, H, T, N, dt: str = "f32", with_s0: bool = False):
+    esize = 4 if dt == "f32" else 2
+    n_bytes = (4 * esize + 4) * B * H * T * N + H * N * 4  # r, k, v, out; w; u
+    n_bytes += B * H * N * N * 4 * (2 if with_s0 else 1)  # states
+    return bound_ms(n_bytes, RWKV_OPS * B * H * T * N * N)
+
+
+def check_rglru(la, gx, h0=None) -> dict:
+    from repro_torch.kernels.rglru_scan import kernel_cuda, ref
+
+    got, want = kernel_cuda.rglru_scan_cuda(la, gx, h0), ref.rglru_scan_ref(la, gx, h0)
+    tol = SCAN_TOL["rglru_scan"]
+    out = _agree("rglru_scan (states)", got[0], want[0], tol)
+    out["max_abs_err"] = max(out["max_abs_err"],
+                             _agree("rglru_scan (final)", got[1], want[1], tol)["max_abs_err"])
+    return out
+
+
+def check_rwkv6(r, k, v, w, u, s0=None) -> dict:
+    """The kernel against its plain version; with ``s0`` also updated in
+    place (state_out=s0 on a copy), as decode does."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import kernel_cuda, ref
+
+    tol = SCAN_TOL["rwkv6_scan"]
+    want = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    got = kernel_cuda.rwkv6_scan_cuda(r, k, v, w, u, s0)
+    errs = [_agree("rwkv6_scan (out)", got[0], want[0], tol)["max_abs_err"],
+            _agree("rwkv6_scan (state)", got[1], want[1], tol)["max_abs_err"]]
+    if s0 is not None:
+        state = s0.clone()
+        o2, _ = kernel_cuda.rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state)
+        if not (torch.equal(o2, got[0]) and torch.equal(state, got[1])):
+            raise AssertionError("rwkv6_scan in place differs from rwkv6_scan out of place")
+    return {"max_abs_err": max(errs), "tolerance": tol}
+
+
+def phase_recurrent_kernels() -> dict:
+    """The scans, and the attention kernels at recurrentgemma-2b's shapes,
+    against their plain versions; the first row of each is the serving
+    path's main shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import kernel_cuda as dec_k
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel_cuda as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rglru_scan import kernel_cuda as rg_k
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+    from repro_torch.kernels.rwkv6_scan import kernel_cuda as rk_k
+    from repro_torch.kernels.rwkv6_scan import ref as rk_ref
+
+    rng = np.random.default_rng(SEED)
+    out = {"rglru_scan": [], "rwkv6_scan": [], "flash_attention": [], "decode_attention": []}
+
+    def randn(shape, scale=1.0, dt=torch.float32):
+        x = rng.normal(0, scale, shape).astype(np.float32)
+        return torch.from_numpy(x).to("cuda", dt)
+
+    def uniform(lo, hi, shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to("cuda")
+
+    plain_reps = dict(reps=3, per_rep=1)  # the plain scans loop over T in Python
+    for i, (B, T, D) in enumerate(RGLRU_SHAPES):
+        la, gx = -uniform(0.001, 2.0, (B, T, D)), randn((B, T, D))
+        h0 = randn((B, D), 0.3) if i else None
+        b_ms, b_by = rglru_bound(B, T, D, with_h0=h0 is not None)
+        out["rglru_scan"].append({
+            "shape": [B, T, D], "h0": h0 is not None, **check_rglru(la, gx, h0),
+            "kernel_ms": time_ms(lambda: rg_k.rglru_scan_cuda(la, gx, h0)),
+            "device_ms": device_ms(lambda: rg_k.rglru_scan_cuda(la, gx, h0),
+                                   ("rglru_scan_kernel",)),
+            "plain_ms": time_ms(lambda: rg_ref.rglru_scan_ref(la, gx, h0), **plain_reps),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        del la, gx, h0
+
+    B, H, T, N = RWKV_SHAPE
+    for t_len, with_s0 in ((T, False), (1, True)):
+        r, k, v = (randn((B, H, t_len, N)) for _ in range(3))
+        w = uniform(0.2, 0.999, (B, H, t_len, N))  # as exp(-exp(x)) gives
+        u = randn((H, N), 0.5)
+        s0 = randn((B, H, N, N), 0.1) if with_s0 else None
+        b_ms, b_by = rwkv6_bound(B, H, t_len, N, with_s0=with_s0)
+        if with_s0:  # decode: the state read and written in place
+            state = s0.clone()
+            call = lambda: rk_k.rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state)  # noqa: E731
+        else:
+            call = lambda: rk_k.rwkv6_scan_cuda(r, k, v, w, u)  # noqa: E731
+        out["rwkv6_scan"].append({
+            "shape": [B, H, t_len, N], "s0": with_s0, "in_place": with_s0,
+            **check_rwkv6(r, k, v, w, u, s0),
+            "kernel_ms": time_ms(call), "device_ms": device_ms(call, ("rwkv6_scan_kernel",)),
+            "plain_ms": time_ms(lambda: rk_ref.rwkv6_scan_ref(r, k, v, w, u, s0),
+                                **(plain_reps if t_len > 1 else {})),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        del r, k, v, w, u, s0
+
+    cfg = configs.get_config("recurrentgemma-2b")
+    serve_cfg = RECURRENT_SERVES[cfg.name]
+    B, H, KVH, D = serve_cfg["requests"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S = serve_cfg["prompt_len"]
+    q, k, v = randn((B, H, S, D)), randn((B, KVH, S, D)), randn((B, KVH, S, D))
+    b_ms, b_by = flash_bound(B, H, KVH, S, D, "f32")
+    out["flash_attention"].append({
+        "shape": [B, H, KVH, S, D], "dtype": "f32", "causal": True,
+        **check_flash(q, k, v, "f32"),
+        "kernel_ms": time_ms(lambda: fa_k.flash_attention_cuda(q, k, v), reps=5, per_rep=2),
+        "device_ms": device_ms(lambda: fa_k.flash_attention_cuda(q, k, v),
+                               ("flash_attention_kernel",), n=3),
+        "plain_ms": time_ms(lambda: fa_ref.attention_ref(q, k, v), reps=5, per_rep=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=5, per_rep=2),
+    })
+    del q, k, v
+    ring = min(cfg.local_window, S + serve_cfg["gen"])  # every slot valid in decode
+    lengths_np = np.full(B, ring, np.int32)
+    lengths = torch.from_numpy(lengths_np).to("cuda")
+    q = randn((B, H, D))
+    kc, vc = (randn((B, KVH, ring, D), dt=torch.bfloat16) for _ in range(2))
+    b_ms, b_by = decode_bound(H, KVH, D, lengths_np, "f32", "bf16")
+    lib_args = _sdpa_decode_args(q, kc, vc, lengths)
+    out["decode_attention"].append({
+        "shape": [B, H, KVH, ring, D], "q_dtype": "f32", "cache_dtype": "bf16",
+        "lengths": lengths_np.tolist(), **check_decode(q, kc, vc, lengths, "f32", "bf16"),
+        "kernel_ms": time_ms(lambda: dec_k.decode_attention_cuda(q, kc, vc, lengths)),
+        "device_ms": device_ms(lambda: dec_k.decode_attention_cuda(q, kc, vc, lengths),
+                               ("decode_partial_kernel", "decode_combine_kernel")),
+        "plain_ms": time_ms(lambda: dec_ref.decode_attention_ref(q, kc, vc, lengths)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            *lib_args[:3], attn_mask=lib_args[3], enable_gqa=True)),
+    })
+    del q, kc, vc, lib_args
+
+    emit({"phase": "recurrent_kernels", "tolerance": {**SCAN_TOL, "attention": ATT_TOL["f32"]},
+          "library_ms_null_because": NO_SCAN_LIBRARY,
+          "library": "torch.nn.functional.scaled_dot_product_attention (yardstick only)",
+          "kernels": out})
+    return out
+
+
 class _Capture:
     """Wraps an ops function: clones the arguments of the calls numbered in
     ``at`` (0-based), then calls through unchanged."""
@@ -676,22 +893,53 @@ class _Capture:
         return self.fn(*args, **kw)
 
 
+def _serve_launches(cfg, prompt_len: int, gen: int) -> dict:
+    """Exact kernel launches of one ``serve_batch`` (prefill + gen - 1 decode
+    steps) on the card: flash once per attention layer whose prompt fits its
+    window (a longer prompt takes local attention's chunk-pair form),
+    decode once per attention layer and step, the RG-LRU scan once per rec
+    layer (its decode step is inline), the RWKV-6 scan once per rwkv layer
+    in prefill and in every step."""
+    kinds = cfg.pattern * cfg.n_superblocks + cfg.remainder
+    n_attn = kinds.count("dense") + kinds.count("local_attn")
+    n_flash = kinds.count("dense") + (kinds.count("local_attn")
+                                      if prompt_len <= cfg.local_window else 0)
+    return {"flash_attention": n_flash, "decode_attention": n_attn * (gen - 1),
+            "rglru_scan": kinds.count("rec"), "rwkv6_scan": kinds.count("rwkv") * gen}
+
+
+def _cache_bytes(cfg, batch: int, s_max: int) -> int:
+    from repro_torch.models import blocks
+
+    kinds = cfg.pattern * cfg.n_superblocks + cfg.remainder
+    return sum(int(np.prod(shape)) * dt.itemsize
+               for kind in kinds
+               for shape, dt in blocks.cache_spec(kind, cfg, batch, s_max).values())
+
+
 def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
-                prompt_len: int = SERVE_PROMPT, gen: int = SERVE_GEN) -> dict:
-    """The serving run; ``device="cpu"`` and a larger ``reduce`` rehearse its
-    control flow on the CPU (no launches, no kernel checks there)."""
+                prompt_len: int = SERVE_PROMPT, gen: int = SERVE_GEN, *,
+                arch: str = SERVE_ARCH, phase: str = "serve") -> dict:
+    """The serving run of ``arch``; ``device="cpu"`` and a larger ``reduce``
+    rehearse its control flow on the CPU (no launches, no kernel checks
+    there). The previous phase's tensors are freed first."""
     import torch
 
     from repro_torch import configs, kernels
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rk_ops
     from repro_torch.launch import serve
     from repro_torch.models import LM
 
-    cfg = serve.reduce_config(configs.get_config(SERVE_ARCH), reduce)
+    t_phase = time.perf_counter()
+    cfg = serve.reduce_config(configs.get_config(arch), reduce)
     lm = LM(cfg)
-    L, B, P, G = cfg.n_layers, requests, prompt_len, gen
+    B, P, G = requests, prompt_len, gen
     on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
     tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
     if tf32:
         raise AssertionError("TF32 matmuls are on; the f32 projections must stay f32")
@@ -703,37 +951,60 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-    fa_cap = _Capture(fa_ops.flash_attention, [0])
-    dec_cap = _Capture(dec_ops.decode_attention, [0, L * (G - 2)])
-    fa_ops.flash_attention, dec_ops.decode_attention = fa_cap, dec_cap
+    want = _serve_launches(cfg, P, G)
+    per_step = {"decode_attention": want["decode_attention"] // max(G - 1, 1),
+                "rwkv6_scan": want["rwkv6_scan"] // G}
+    # (module, function, {call number: label}): layer 0's calls.
+    caps = {
+        "flash_attention": (fa_ops, "flash_attention", {0: "prefill"}),
+        "decode_attention": (dec_ops, "decode_attention", {
+            0: "first_step", per_step["decode_attention"] * (G - 2): "last_step"}),
+        "rglru_scan": (rg_ops, "rglru_scan", {0: "prefill"}),
+        "rwkv6_scan": (rk_ops, "rwkv6_scan", {
+            0: "prefill", per_step["rwkv6_scan"] * (G - 1): "last_step"}),
+    }
+    captures = {name: _Capture(getattr(mod, fn), at) for name, (mod, fn, at) in caps.items()}
+    for name, (mod, fn, _) in caps.items():
+        setattr(mod, fn, captures[name])
     try:
         kernels.reset_launch_counts()
         timings = {}
         tokens = serve.serve_batch(lm, params, prompts, G, timings=timings)
         launches = kernels.launch_counts()
     finally:
-        fa_ops.flash_attention, dec_ops.decode_attention = fa_cap.fn, dec_cap.fn
+        for name, (mod, fn, _) in caps.items():
+            setattr(mod, fn, captures[name].fn)
     peak = int(torch.cuda.max_memory_allocated()) if on_card else None
-    want = {"flash_attention": L, "decode_attention": L * (G - 1)}
     got = {k: launches[k] for k in want}
     if on_card and got != want:
-        raise AssertionError(f"serve launches {got}, expected {want}")
+        raise AssertionError(f"{phase} launches {got}, expected {want}")
     if tokens.shape != (B, G) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
-        raise AssertionError(f"serve tokens of shape {tokens.shape} out of range")
+        raise AssertionError(f"{phase} tokens of shape {tokens.shape} out of range")
 
-    # The kernels against their plain versions on tensors of this run.
+    # The kernels against their plain versions on layer-0 tensors of this run.
     captured = {}
-    if on_card:
-        q, k, v = fa_cap.got[0]
-        captured["flash_attention"] = {"layer": 0, "shape": list(q.shape),
-                                       **check_flash(q, k, v, "f32")}
-    for n, label in ((0, "first_step"), (L * (G - 2), "last_step")):
-        qd, kc, vc, lens = dec_cap.got[n]
-        captured[f"decode_attention_{label}"] = {"layer": 0, "lengths": lens.tolist()}
-        if on_card:
-            captured[f"decode_attention_{label}"].update(
-                check_decode(qd, kc, vc, lens, "f32", "bf16"))
-    cache_bytes = 2 * L * B * cfg.n_kv_heads * (P + G) * cfg.head_dim * 2
+    for name, cap in captures.items():
+        for n, label in caps[name][2].items():
+            if n not in cap.got:
+                continue
+            args = cap.got[n]
+            key = f"{name}_{label}"
+            captured[key] = {"layer": 0, "call": n}
+            if name == "decode_attention":
+                captured[key]["lengths"] = args[3].tolist()
+            if not on_card:
+                continue
+            if name == "flash_attention":
+                captured[key].update(shape=list(args[0].shape), **check_flash(*args[:3], "f32"))
+            elif name == "decode_attention":
+                captured[key].update(check_decode(*args[:4], "f32", "bf16"))
+            elif name == "rglru_scan":
+                captured[key].update(shape=list(args[1].shape), **check_rglru(*args[:3]))
+            else:
+                captured[key].update(shape=list(args[0].shape), **check_rwkv6(*args[:6]))
+    if on_card and len(captured) != sum(len(caps[k][2]) for k in want if want[k]):
+        raise AssertionError(f"{phase}: captured {sorted(captured)} for launches {want}")
+    del captures, caps
     total_s = timings["prefill_s"] + timings["decode_s"]
     profile = decode_profile(lm, params, prompts, G)
     step_ms = timings["decode_s"] * 1e3 / timings["decode_steps"]
@@ -741,10 +1012,11 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
         # Against the unprofiled step time of the run above.
         profile["device_idle_share"] = 1.0 - profile["device_busy_ms_per_step"] / step_ms
     info = {
-        "phase": "serve",
+        "phase": phase,
         "arch": cfg.name,
-        "layers": L, "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
-        "vocab": cfg.vocab_size,
+        "layers": cfg.n_layers, "pattern": list(cfg.pattern), "remainder": list(cfg.remainder),
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
         "requests": B, "prompt_len": P, "gen": G, "s_max": P + G,
         "param_dtype": "float32", "cache_dtype": "bfloat16", "allow_tf32": tf32,
         "prefill_s": timings["prefill_s"],
@@ -754,13 +1026,15 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
         "decode_tokens_per_s": B * timings["decode_steps"] / timings["decode_s"],
         "prefill_tokens_per_s": B * P / timings["prefill_s"],
         "param_bytes": param_bytes,
-        "cache_bytes": cache_bytes,
+        "cache_bytes": _cache_bytes(cfg, B, P + G),
         "max_memory_allocated": peak,
         "launches": got,
         "captured_checks": captured,
         "decode_profile": profile,
         "tokens_head": tokens[:2, :8].tolist(),
+        "phase_s": time.perf_counter() - t_phase,
     }
+    del params
     emit(info)
     return info
 
@@ -865,42 +1139,124 @@ def phase_serve_parity(device="cuda") -> dict:
     return info
 
 
-def kernels_line(kern: dict, full: dict, att: dict, served: dict) -> dict:
+def greedy(lm, params, prompts, gen: int, cache_dtype):
+    """``serve_batch``'s greedy loop with the decode cache in ``cache_dtype``:
+    (B, gen) tokens and the (B, gen, V) float32 logits they were taken from."""
+    import torch
+
+    device = params["embed"].device
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=device)}
+    logits, cache, lengths = lm.prefill(params, batch, s_max=prompts.shape[1] + gen,
+                                        cache_dtype=cache_dtype)
+    out, seen = [], []
+    for i in range(gen):
+        if i:
+            logits, cache, lengths = lm.decode_step(params, {"tokens": out[-1][:, None]},
+                                                    cache, lengths)
+        out.append(logits.argmax(-1))
+        seen.append(logits)
+    return torch.stack(out, 1).cpu().numpy(), torch.stack(seen, 1).float().cpu().numpy()
+
+
+def _logit_diff(logits, ref_logits) -> tuple:
+    diff = np.abs(logits - ref_logits)
+    ok = bool((diff <= PARITY_TOL + PARITY_TOL * np.abs(ref_logits)).all())
+    return float(diff.max()), ok and bool(np.isfinite(logits).all())
+
+
+def phase_recurrent_parity(arch: str, device="cuda", gen: int = 16) -> dict:
+    """``arch`` at reduce 8 on the card against the CPU, same parameters:
+    greedily with a float32 cache (held: logits within PARITY_TOL, tokens
+    equal, exact launches), then through ``serve_batch`` with its bf16 cache
+    (reported)."""
+    import torch
+
+    from repro_torch import configs, kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models.layers import tree_map
+
+    cfg = serve.reduce_config(configs.get_config(arch), 8)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(SEED), dtype=torch.float32)
+    P = RECURRENT_PARITY_PROMPT[arch]
+    prompts = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, size=(2, P))
+    t0 = time.perf_counter()
+    cpu_tokens, cpu_logits = greedy(lm, params, prompts, gen, torch.float32)
+    cpu_s = time.perf_counter() - t0
+    card = tree_map(lambda t: t.to(device), params)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, logits = greedy(lm, card, prompts, gen, torch.float32)
+    card_s = time.perf_counter() - t0
+    got = {k: kernels.launch_counts()[k] for k in SERVE_KERNELS}
+    want = _serve_launches(cfg, P, gen)
+    max_diff, ok = _logit_diff(logits, cpu_logits)
+    b_cpu_tokens, b_cpu_logits = serve.serve_batch(lm, params, prompts, gen, return_logits=True)
+    b_tokens, b_logits = serve.serve_batch(lm, card, prompts, gen, return_logits=True)
+    if not (np.isfinite(b_logits).all() and b_tokens.shape == (2, gen)):
+        raise AssertionError(f"{arch} serve_batch on the card gave non-finite logits")
+    info = {
+        "phase": "recurrent_parity",
+        "arch": cfg.name,
+        "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                   "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                   "local_window": cfg.local_window, "rwkv_head_dim": cfg.rwkv_head_dim,
+                   "vocab": cfg.vocab_size},
+        "requests": 2, "prompt_len": P, "gen": gen, "cache_dtype": "float32",
+        "max_abs_logit_diff": max_diff,
+        "max_abs_logit": float(np.abs(cpu_logits).max()),
+        "tolerance": PARITY_TOL,
+        "tokens_equal": bool((tokens == cpu_tokens).all()),
+        "launches": got,
+        "card_s": card_s, "cpu_s": cpu_s,
+        "serve_batch_bf16_cache": {
+            "max_abs_logit_diff": float(np.abs(b_logits - b_cpu_logits).max()),
+            "tokens_equal": bool((b_tokens == b_cpu_tokens).all()),
+        },
+    }
+    emit(info)
+    if not (ok and info["tokens_equal"]) or (device == "cuda" and got != want):
+        raise AssertionError(f"{arch} parity failed (launches expected {want}): {info}")
+    return info
+
+
+def _entry(name: str, main: dict, launches: int) -> dict:
+    return {
+        "name": name,
+        **KERNEL_INFO[name],
+        "launches": int(launches),
+        "max_abs_err": main.get("max_abs_err", main.get("max_abs_diff")),
+        "tolerance": main.get("tolerance", 0),
+        "ms": main["kernel_ms"],
+        "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shape": main["shape"],
+    }
+
+
+def kernels_line(kern: dict, full: dict, att: dict, served: dict, rec: dict,
+                 rec_served: dict) -> dict:
+    """One entry per kernel at its main shape; ``rec_served`` maps an arch
+    to its serve phase's output."""
     entries = []
     for name, rows in kern.items():
         main = next(r for r in rows if tuple(r["shape"]) == MAIN_SHAPE)
-        entries.append({
-            "name": name,
-            **KERNEL_INFO[name],
-            "launches": int(full["launches"][name]),
-            "max_abs_err": main["max_abs_diff"],
-            "tolerance": 0,
-            "ms": main["kernel_ms"],
-            "device_ms": main["device_ms"],
-            "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"],
-            "library_ms": None,
-            "shape": main["shape"],
-            "shapes": rows,
-        })
+        entries.append({**_entry(name, main, full["launches"][name]), "shapes": rows})
+    gemma = rec_served["recurrentgemma-2b"]
     for name, rows in att.items():
-        main = rows[0]  # the dtypes the serving path uses
+        # The dtypes the serving path uses; recurrentgemma-2b's shape after.
         entries.append({
-            "name": name,
-            **KERNEL_INFO[name],
-            "launches": int(served["launches"][name]),
-            "max_abs_err": main["max_abs_err"],
-            "tolerance": main["tolerance"],
-            "ms": main["kernel_ms"],
-            "device_ms": main["device_ms"],
-            "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
-            "shape": main["shape"],
-            "shapes": rows,
+            **_entry(name, rows[0], served["launches"][name]),
+            "launches_by_phase": {p["phase"]: p["launches"][name] for p in (served, gemma)},
+            "shapes": rows + rec[name],
         })
+    for name, arch in (("rglru_scan", "recurrentgemma-2b"), ("rwkv6_scan", "rwkv6-7b")):
+        entries.append({**_entry(name, rec[name][0], rec_served[arch]["launches"][name]),
+                        "library_ms_null_because": NO_SCAN_LIBRARY, "shapes": rec[name]})
     return {"kernels": entries}
 
 
@@ -917,12 +1273,16 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     att = phase_attention_kernels()
+    rec = phase_recurrent_kernels()
     phase_round()
     phase_parity()
     full = phase_full()
     served = phase_serve()
     phase_serve_parity()
-    emit(kernels_line(kern, full, att, served))
+    rec_served = {arch: phase_serve(arch=arch, **kw) for arch, kw in RECURRENT_SERVES.items()}
+    for arch in RECURRENT_SERVES:
+        phase_recurrent_parity(arch)
+    emit(kernels_line(kern, full, att, served, rec, rec_served))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

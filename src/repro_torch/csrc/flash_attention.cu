@@ -36,7 +36,10 @@
 //     masked keys get -inf, rows beyond S are not stored) are masked per
 //     element. A row whose every key so far is masked keeps max -inf and
 //     takes exp against 0, so no NaN is formed.
-// 100 KB of shared memory at D = 128, so two CTAs share an SM.
+// 100 KB of shared memory at D = 128, so two CTAs share an SM. At D = 256
+// (recurrentgemma-2b) it is 198,656 bytes, one CTA per SM, and each thread
+// holds 64 accumulator floats: that instance is compiled for one CTA per
+// SM, so ptxas may give it up to 255 registers instead of 128.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -89,7 +92,7 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restric
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, (D > 128 ? 1 : 2))
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int H, int KVH,
                            int S, long long qsB, long long qsH, long long qsS,
@@ -279,6 +282,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
     case 32: return launch<T, 32>(q, k, v, o, B, H, KVH, S, st, scale, causal, s);
     case 64: return launch<T, 64>(q, k, v, o, B, H, KVH, S, st, scale, causal, s);
     case 128: return launch<T, 128>(q, k, v, o, B, H, KVH, S, st, scale, causal, s);
+    case 256: return launch<T, 256>(q, k, v, o, B, H, KVH, S, st, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -288,7 +292,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
 extern "C" {
 
 // dtype: 0 = f32, 1 = bf16, 2 = f16 (q, k, v and o alike). D in {16, 32,
-// 64, 128}. Strides are in elements, (batch, head, sequence) for q, k, v in
+// 64, 128, 256}. Strides are in elements, (batch, head, sequence) for q, k, v in
 // that order; the last dimension is contiguous. o is contiguous (B, H, S, D).
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,

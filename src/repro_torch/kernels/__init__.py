@@ -15,6 +15,12 @@ Each kernel package has:
   decode_attention - one-token GQA attention against a KV cache (LM
                  decode); replaces
                  repro.kernels.decode_attention.kernel.decode_attention_pallas
+  rglru_scan   - RecurrentGemma's RG-LRU diagonal recurrence (the rec
+                 block's prefill); replaces
+                 repro.kernels.rglru_scan.kernel.rglru_scan_pallas
+  rwkv6_scan   - the RWKV-6 N x N state recurrence (the rwkv block's
+                 prefill and decode); replaces
+                 repro.kernels.rwkv6_scan.kernel.rwkv6_scan_pallas
 
 `build` compiles the sources with nvcc on first use.
 """
@@ -23,14 +29,19 @@ from .auction_bid.kernel_cuda import bid_top2_cuda
 from .costmap.kernel_cuda import costmap_cuda
 from .decode_attention.kernel_cuda import decode_attention_cuda
 from .flash_attention.kernel_cuda import flash_attention_cuda
+from .rglru_scan.kernel_cuda import rglru_scan_cuda
+from .rwkv6_scan.kernel_cuda import rwkv6_scan_cuda
 
 #: (name, wrapper, CUDA source) of every kernel of the port: the scheduling
-#: path's two, then the LM serving path's two.
+#: path's two, the LM serving path's attention kernels, then the recurrent
+#: blocks' scans.
 KERNELS = (
     ("costmap", costmap_cuda, "costmap.cu"),
     ("auction_bid", bid_top2_cuda, "auction_bid.cu"),
     ("flash_attention", flash_attention_cuda, "flash_attention.cu"),
     ("decode_attention", decode_attention_cuda, "decode_attention.cu"),
+    ("rglru_scan", rglru_scan_cuda, "rglru_scan.cu"),
+    ("rwkv6_scan", rwkv6_scan_cuda, "rwkv6_scan.cu"),
 )
 
 

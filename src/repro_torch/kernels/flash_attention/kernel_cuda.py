@@ -20,7 +20,7 @@ from .. import build
 
 SOURCE = "flash_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -1,10 +1,13 @@
 """Serving entry point: batched prefill + decode of a batch of requests.
 
 Port of `repro.launch.serve` on one device: batched prefill, then one
-batched decode step per generated token against the preallocated KV cache
-(written in place), with greedy or temperature sampling. Parameters are
-float32 and the cache bf16, as the reference's ``main`` and ``prefill``
-have them. Float32 matrix products run in full float32:
+batched decode step per generated token against the preallocated cache
+(written in place: K/V, and the recurrent state of recurrentgemma-2b's rec
+blocks and rwkv6-7b's rwkv blocks), with greedy or temperature sampling.
+``--arch`` takes any architecture whose block kinds are ported (dense,
+local_attn, rec, rwkv), at any ``--reduce``. Parameters are float32 and
+the cache bf16 (recurrent states float32), as the reference's ``main`` and
+``prefill`` have them. Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's default;
 ``main`` sets it). Multi-device serving (the reference's ``--mesh``) is a
 ROADMAP item.

@@ -1,14 +1,22 @@
-"""Attention sequence mixing: global causal and one-token decode.
+"""Attention sequence mixing: global causal, local (sliding window) and
+one-token decode.
 
-Port of `repro.models.attention`. Both functions dispatch through their
-kernel's ``ops`` by the device of their tensors: a CUDA tensor launches the
-hand-written kernel (`repro_torch.kernels.flash_attention`,
+Port of `repro.models.attention`. Causal and decode attention dispatch
+through their kernel's ``ops`` by the device of their tensors: a CUDA
+tensor launches the hand-written kernel
+(`repro_torch.kernels.flash_attention`,
 `repro_torch.kernels.decode_attention`) or raises, a CPU tensor takes the
 plain PyTorch version. K/V stay at KVH heads on the card (the kernels map
 query head h to KV head h // G); the plain versions repeat them.
 
-Local (sliding-window) and cross attention belong to block kinds that
-later slices of the port bring (ROADMAP.md, module item 11).
+Local attention over a prompt no longer than its window is causal
+attention, so the flash kernel. A longer prompt takes the reference's
+chunk-pair form: window-sized query chunks against their (previous, own)
+key chunks, O(S x 2W) logits, with PyTorch products, as the reference
+computes it with einsums outside any Pallas kernel.
+
+Cross attention belongs to the VLM's block kind, which a later slice of the
+port brings (ROADMAP.md, module item 11).
 """
 
 from __future__ import annotations
@@ -16,9 +24,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.decode_attention import ops as decode_ops
 from ..kernels.flash_attention import ops as flash_ops
+
+NEG_INF = -1e30  # the reference's mask value in the chunk-pair form
 
 
 def causal_attention(
@@ -33,11 +44,46 @@ def causal_attention(
     return flash_ops.flash_attention(q, k, v, causal=True, scale=scale)
 
 
-def local_attention(q, k, v, window: int, *, scale: Optional[float] = None):
-    raise NotImplementedError(
-        "local_attention (the local_attn block) is ported with the "
-        "recurrentgemma-2b serving slice (ROADMAP.md, module item 11)"
-    )
+def local_attention(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, KVH, S, D)
+    v: torch.Tensor,
+    window: int,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Sliding-window causal attention (each query sees <= ``window`` keys)."""
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    G = H // KVH
+    if scale is None:
+        scale = 1.0 / (D**0.5)
+    if S <= window:
+        return causal_attention(q, k, v, scale=scale)
+    if S % window:
+        pad = (0, 0, 0, window - S % window)
+        return local_attention(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), window,
+                               scale=scale)[:, :, :S]
+    nc = S // window
+    qc = q.reshape(B, KVH, G, nc, window, D).float()
+    kc = k.reshape(B, KVH, nc, window, D).float()
+    vc = v.reshape(B, KVH, nc, window, D).float()
+    kprev = torch.cat([torch.zeros_like(kc[:, :, :1]), kc[:, :, :-1]], dim=2)
+    vprev = torch.cat([torch.zeros_like(vc[:, :, :1]), vc[:, :, :-1]], dim=2)
+    kk = torch.cat([kprev, kc], dim=3)  # (B, KVH, nc, 2W, D)
+    vv = torch.cat([vprev, vc], dim=3)
+    logits = torch.einsum("bkgcqd,bkcod->bkgcqo", qc, kk) * scale
+    ar = torch.arange(2 * window, device=q.device)
+    qpos = ar[:window, None] + window
+    kpos = ar[None, :]
+    ok = (kpos <= qpos) & (kpos > qpos - window)
+    first = kpos >= window  # chunk 0: its own keys only
+    mask = torch.where((torch.arange(nc, device=q.device) == 0)[:, None, None],
+                       ok[None] & first[None], ok[None])  # (nc, W, 2W)
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bkgcqo,bkcod->bkgcqd", p, vv) / p.sum(dim=-1, keepdim=True)
+    return out.reshape(B, H, S, D).to(q.dtype)
 
 
 def cross_attention(q, k, v, *, scale: Optional[float] = None):

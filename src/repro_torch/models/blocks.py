@@ -1,12 +1,25 @@
-"""Layer blocks: the ``dense`` kind (attention + FFN).
+"""Layer blocks: dense, local_attn, rec (RG-LRU) and rwkv (RWKV-6).
 
-Port of the dense path of `repro.models.blocks`. The block provides:
+Port of `repro.models.blocks` for serving. Each kind provides:
   block_specs(kind, cfg)                       -> dict of Param specs
+  cache_spec(kind, cfg, batch, s_max)          -> {name: (shape, dtype)}
   apply_block_seq(kind, cfg, p, x, pos)        -> (y, cache_entry)
   apply_block_decode(kind, cfg, p, x, pos, cache, lengths) -> (y, cache)
 
-The other kinds raise NotImplementedError naming the slice of the port that
-brings them (ROADMAP.md, module item 11).
+Kinds: dense (attention + FFN), local_attn (sliding-window attention +
+FFN, a ring-buffer cache of the last ``local_window`` keys), rec
+(Griffin's RG-LRU recurrent block + FFN, cache: state ``h`` and the
+temporal conv's history ``conv``) and rwkv (RWKV-6 time mix + channel mix,
+cache: state ``S`` and the token shifts ``shift``, ``shift_c``).
+
+Decode writes every cache entry IN PLACE (the reference returns new
+arrays): K/V at their slot, and the recurrent kinds' states over the old
+ones. The returned dict holds the same tensors. The reference's
+simplifications of the upstream models (static token-shift ratios, the
+decay's LoRA only; diagonal RG-LRU gates) are kept as they are.
+
+The moe and cross kinds raise NotImplementedError naming the slice of the
+port that brings them (ROADMAP.md, module item 11).
 """
 
 from __future__ import annotations
@@ -14,22 +27,26 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..kernels.rglru_scan import ops as rglru_ops
+from ..kernels.rwkv6_scan import ops as rwkv_ops
 from . import attention
 from .layers import Param, activation_fn, rms_norm, rope
 
+RGLRU_C = 8.0  # Griffin's recurrence-gate temperature
+RWKV_GN_EPS = 64e-5  # the time mix's group-norm epsilon
+
+_PORTED = ("dense", "local_attn", "rec", "rwkv")
 _NOT_PORTED = {
-    "rec": "the recurrentgemma-2b serving slice",
-    "local_attn": "the recurrentgemma-2b serving slice",
-    "rwkv": "the rwkv6-7b serving slice",
     "moe": "the MoE serving slice",
     "cross": "the VLM serving slice",
 }
 
 
 def _check_kind(kind: str) -> None:
-    if kind == "dense":
+    if kind in _PORTED:
         return
     if kind in _NOT_PORTED:
         raise NotImplementedError(
@@ -69,9 +86,54 @@ def _ffn_specs(cfg: ArchConfig) -> Dict[str, Param]:
     return s
 
 
+def _rec_specs(cfg: ArchConfig) -> Dict[str, Param]:
+    D = cfg.d_model
+    R = cfg.rnn_width or D
+    return {
+        "wx": Param((D, R), ("embed", "rnn")),
+        "wgate": Param((D, R), ("embed", "rnn")),
+        "conv": Param((cfg.conv_width, R), (None, "rnn"), scale=cfg.conv_width**-0.5),
+        "wa_diag": Param((R,), ("rnn",), init="zeros"),
+        "ba": Param((R,), ("rnn",), init="zeros"),
+        "wi_diag": Param((R,), ("rnn",), init="zeros"),
+        "bi": Param((R,), ("rnn",), init="zeros"),
+        "lam": Param((R,), ("rnn",), init="normal", scale=1.0),
+        "wo": Param((R, D), ("rnn", "embed")),
+    }
+
+
+def _rwkv_specs(cfg: ArchConfig) -> Dict[str, Param]:
+    D, F = cfg.d_model, cfg.d_ff
+    H = cfg.n_heads
+    N = cfg.rwkv_head_dim
+    lora = 64
+    return {
+        "mu": Param((5, D), (None, "embed"), init="zeros"),  # r,k,v,g,w shifts
+        "wr": Param((D, D), ("embed", "heads")),
+        "wk_": Param((D, D), ("embed", "heads")),
+        "wv_": Param((D, D), ("embed", "heads")),
+        "wg": Param((D, D), ("embed", "heads")),
+        "w0": Param((D,), ("heads",), init="zeros"),
+        "wA": Param((D, lora), ("embed", None)),
+        "wB": Param((lora, D), (None, "heads"), init="zeros"),
+        "u": Param((H, N), ("heads", None), init="zeros"),
+        "ln_x": Param((D,), ("heads",), init="zeros"),
+        "wo": Param((D, D), ("heads", "embed")),
+        "mu_c": Param((2, D), (None, "embed"), init="zeros"),
+        "wc1": Param((D, F), ("embed", "mlp")),
+        "wc2": Param((F, D), ("mlp", "embed")),
+        "wcr": Param((D, D), ("embed", "heads")),
+    }
+
+
 def block_specs(kind: str, cfg: ArchConfig) -> Dict[str, Any]:
     _check_kind(kind)
     norm = lambda: Param((cfg.d_model,), ("embed",), init="zeros")  # noqa: E731
+    if kind == "rec":
+        return {"norm_mix": norm(), "rec": _rec_specs(cfg), "norm_ffn": norm(),
+                "ffn": _ffn_specs(cfg)}
+    if kind == "rwkv":
+        return {"norm_mix": norm(), "norm_ffn": norm(), "rwkv": _rwkv_specs(cfg)}
     return {
         "norm_attn": norm(),
         "attn": _attn_specs(cfg),
@@ -83,7 +145,21 @@ def block_specs(kind: str, cfg: ArchConfig) -> Dict[str, Any]:
 def cache_spec(kind: str, cfg: ArchConfig, batch: int, s_max: int):
     """Shape/dtype spec dict for one layer's decode cache."""
     _check_kind(kind)
-    shape = (batch, cfg.n_kv_heads, s_max, cfg.head_dim)
+    if kind == "rec":
+        R = cfg.rnn_width or cfg.d_model
+        return {
+            "h": ((batch, R), torch.float32),
+            "conv": ((batch, cfg.conv_width - 1, R), torch.bfloat16),
+        }
+    if kind == "rwkv":
+        H, N = cfg.n_heads, cfg.rwkv_head_dim
+        return {
+            "S": ((batch, H, N, N), torch.float32),
+            "shift": ((batch, cfg.d_model), torch.bfloat16),
+            "shift_c": ((batch, cfg.d_model), torch.bfloat16),
+        }
+    s = min(cfg.local_window, s_max) if kind == "local_attn" else s_max
+    shape = (batch, cfg.n_kv_heads, s, cfg.head_dim)
     return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
 
 
@@ -117,24 +193,30 @@ def _qkv(cfg, p, x, positions, *, rope_on=True):
 
 def attn_seq(cfg, p, x, positions, kind):
     """Full-sequence attention sublayer. Returns (out, (k, v))."""
-    _check_kind(kind)
     q, k, v = _qkv(cfg, p, x, positions)
-    o = attention.causal_attention(q, k, v)
+    if kind == "local_attn":
+        o = attention.local_attention(q, k, v, cfg.local_window)
+    else:
+        o = attention.causal_attention(q, k, v)
     return _merge_heads(o) @ p["wo"], (k, v)
 
 
 def attn_decode(cfg, p, x, positions, kind, cache, lengths):
     """One-token attention sublayer against the cache.
 
-    The new K/V go into the cache at slot ``lengths[b]`` IN PLACE (the
-    reference returns an updated copy); the returned dict holds the same
-    tensors.
+    The new K/V go into the cache IN PLACE at slot ``lengths[b]`` (dense)
+    or ``lengths[b] % w`` (local_attn's ring of w slots, valid
+    ``min(lengths[b] + 1, w)``); the returned dict holds the same tensors.
     """
-    _check_kind(kind)
     B = x.shape[0]
     q, k, v = _qkv(cfg, p, x, positions)
-    slot = lengths.long()
-    valid = (lengths + 1).to(torch.int32)
+    if kind == "local_attn":
+        w = cache["k"].shape[2]
+        slot = (lengths % w).long()
+        valid = torch.clamp(lengths + 1, max=w).to(torch.int32)
+    else:
+        slot = lengths.long()
+        valid = (lengths + 1).to(torch.int32)
     bidx = torch.arange(B, device=x.device)
     cache["k"][bidx, :, slot] = k[:, :, 0].to(cache["k"].dtype)
     cache["v"][bidx, :, slot] = v[:, :, 0].to(cache["v"].dtype)
@@ -142,8 +224,18 @@ def attn_decode(cfg, p, x, positions, kind, cache, lengths):
     return o.reshape(B, 1, -1) @ p["wo"], cache
 
 
+def _ring(k: torch.Tensor, window: int) -> torch.Tensor:
+    """Prefill K or V (B, KVH, S, Dh) in local_attn's ring-buffer layout:
+    position p at slot p % window, so decode's (length % w) overwrite stays
+    consistent. Only the last ``window`` positions are kept."""
+    S = k.shape[2]
+    if S <= window:
+        return k
+    return torch.roll(k[:, :, -window:], S % window, dims=2)
+
+
 # --------------------------------------------------------------------------
-# FFN and the full block (norms + residuals)
+# FFN
 # --------------------------------------------------------------------------
 
 
@@ -155,23 +247,172 @@ def ffn_apply(cfg, p, x):
     return h @ p["w2"]
 
 
+# --------------------------------------------------------------------------
+# RG-LRU recurrent block (Griffin / RecurrentGemma)
+# --------------------------------------------------------------------------
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def _rglru_gates(p, xc):
+    """(log_a, gx) from the conv output xc, in float32."""
+    xf = xc.float()
+    r = torch.sigmoid(xf * p["wa_diag"].float() + p["ba"].float())
+    i = torch.sigmoid(xf * p["wi_diag"].float() + p["bi"].float())
+    log_a = -RGLRU_C * F.softplus(p["lam"].float()) * r
+    return log_a, i * xf
+
+
+def _conv(p, hist, n: int, width: int):
+    """Depthwise temporal conv: sum_i hist[:, i : i + n] * conv[i]."""
+    return sum(hist[:, i : i + n] * p["conv"][i] for i in range(width))
+
+
+def rec_seq(cfg, p, x):
+    """(B, S, D) -> (B, S, D) + cache entry {h, conv}."""
+    B, S, _ = x.shape
+    gate = _gelu(x @ p["wgate"])  # (B, S, R)
+    xr = x @ p["wx"]  # (B, S, R)
+    CW = cfg.conv_width
+    pad = torch.zeros((B, CW - 1, xr.shape[-1]), dtype=xr.dtype, device=xr.device)
+    xp = torch.cat([pad, xr], dim=1)  # causal: left padding
+    log_a, gx = _rglru_gates(p, _conv(p, xp, S, CW))
+    h, h_final = rglru_ops.rglru_scan(log_a, gx, None)
+    out = (gate * h.to(gate.dtype)) @ p["wo"]
+    return out, {"h": h_final, "conv": xp[:, -(CW - 1):]}
+
+
+def rec_decode(cfg, p, x, cache):
+    """One step of the recurrence, inline as in the reference (no kernel);
+    ``h`` and ``conv`` are written into the cache in place."""
+    gate = _gelu(x @ p["wgate"])  # (B, 1, R)
+    xr = x @ p["wx"]  # (B, 1, R)
+    CW = cfg.conv_width
+    hist = torch.cat([cache["conv"].to(xr.dtype), xr], dim=1)  # (B, CW, R)
+    log_a, gx = _rglru_gates(p, _conv(p, hist, 1, CW)[:, 0])
+    h = torch.exp(log_a) * cache["h"] + torch.sqrt(-torch.expm1(2.0 * log_a)) * gx
+    out = (gate[:, 0] * h.to(gate.dtype)) @ p["wo"]
+    cache["h"].copy_(h)
+    cache["conv"].copy_(hist[:, 1:])
+    return out[:, None], cache
+
+
+# --------------------------------------------------------------------------
+# RWKV-6 block
+# --------------------------------------------------------------------------
+
+
+def _shift(x, last=None):
+    """Token shift: x_{t-1} (zeros, or ``last`` for t = 0)."""
+    first = torch.zeros_like(x[:, :1]) if last is None else last[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _rwkv_mix(p, x, xs):
+    mu = p["mu"]  # (5, D)
+    return tuple(x + (xs - x) * torch.sigmoid(mu[i]) for i in range(5))  # r,k,v,g,w
+
+
+def _rwkv_decay(p, xw):
+    raw = p["w0"].float() + torch.tanh(xw.float() @ p["wA"].float()) @ p["wB"].float()
+    return torch.exp(-torch.exp(raw))  # (.., D) in (0, 1)
+
+
+def _group_norm(x, scale, eps, n_groups):
+    B, S, D = x.shape
+    xg = x.reshape(B, S, n_groups, D // n_groups).float()
+    mean = xg.mean(-1, keepdim=True)
+    var = xg.var(-1, keepdim=True, correction=0)  # jnp.var: population variance
+    xg = (xg - mean) * torch.rsqrt(var + eps)
+    return (xg.reshape(B, S, D) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rwkv_time_mix(cfg, p, x, last=None, s0=None, state_out=None):
+    """Time mix over (B, S, D) from shift ``last`` and state ``s0`` (zeros
+    when None). Returns (out, final state); with ``state_out`` the final
+    state is written there (decode passes its cache's state as both)."""
+    B, S, D = x.shape
+    H, N = cfg.n_heads, cfg.rwkv_head_dim
+    xr, xk, xv, xg, xw = _rwkv_mix(p, x, _shift(x, last))
+
+    def heads(t):
+        return t.reshape(B, S, H, N).transpose(1, 2)  # (B, H, S, N), a view
+
+    r, k, v = heads(xr @ p["wr"]), heads(xk @ p["wk_"]), heads(xv @ p["wv_"])
+    g = F.silu(xg @ p["wg"])
+    w = heads(_rwkv_decay(p, xw))
+    o, s_final = rwkv_ops.rwkv6_scan(r, k, v, w, p["u"], s0, state_out=state_out)
+    o = _group_norm(o.transpose(1, 2).reshape(B, S, D), p["ln_x"], RWKV_GN_EPS, H)
+    return (o * g) @ p["wo"], s_final
+
+
+def rwkv_channel_mix(cfg, p, x, last=None):
+    xs = _shift(x, last)
+    mu = p["mu_c"]
+    xk = x + (xs - x) * torch.sigmoid(mu[0])
+    xr = x + (xs - x) * torch.sigmoid(mu[1])
+    kk = torch.square(torch.relu(xk @ p["wc1"]))
+    return torch.sigmoid(xr @ p["wcr"]) * (kk @ p["wc2"])
+
+
+# --------------------------------------------------------------------------
+# the full block (norms + residuals + cache)
+# --------------------------------------------------------------------------
+
+
 def apply_block_seq(kind, cfg, p, x, positions):
-    """Full-sequence block. Returns (y, {"k", "v"} at the prompt's length)."""
+    """Full-sequence block. Returns (y, cache entry at the prompt's length),
+    with the entries of ``cache_spec(kind)`` (K/V, for local_attn in the
+    ring layout)."""
     _check_kind(kind)
+    if kind == "rec":
+        xn = rms_norm(x, p["norm_mix"], cfg.norm_eps)
+        a, entry = rec_seq(cfg, p["rec"], xn)
+        x = x + a
+        xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+        return x + ffn_apply(cfg, p["ffn"], xn), entry
+    if kind == "rwkv":
+        pr = p["rwkv"]
+        xn = rms_norm(x, p["norm_mix"], cfg.norm_eps)
+        a, s_final = rwkv_time_mix(cfg, pr, xn)
+        x = x + a
+        xn2 = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+        x = x + rwkv_channel_mix(cfg, pr, xn2)
+        return x, {"S": s_final, "shift": xn[:, -1], "shift_c": xn2[:, -1]}
     xn = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     a, (k, v) = attn_seq(cfg, p["attn"], xn, positions, kind)
     x = x + a
     xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
     x = x + ffn_apply(cfg, p["ffn"], xn)
+    if kind == "local_attn":
+        k, v = _ring(k, cfg.local_window), _ring(v, cfg.local_window)
     return x, {"k": k, "v": v}
 
 
 def apply_block_decode(kind, cfg, p, x, positions, cache, lengths):
     """One-token block (x: (B, 1, D)). Returns (y, cache updated in place)."""
     _check_kind(kind)
+    if kind == "rec":
+        xn = rms_norm(x, p["norm_mix"], cfg.norm_eps)
+        a, cache = rec_decode(cfg, p["rec"], xn, cache)
+        x = x + a
+        xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+        return x + ffn_apply(cfg, p["ffn"], xn), cache
+    if kind == "rwkv":
+        # The sequence path on one token, from the cached shifts and state.
+        pr = p["rwkv"]
+        xn = rms_norm(x, p["norm_mix"], cfg.norm_eps)
+        a, _ = rwkv_time_mix(cfg, pr, xn, cache["shift"], cache["S"], state_out=cache["S"])
+        x = x + a
+        xn2 = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+        x = x + rwkv_channel_mix(cfg, pr, xn2, cache["shift_c"])
+        cache["shift"].copy_(xn[:, 0])
+        cache["shift_c"].copy_(xn2[:, 0])
+        return x, cache
     xn = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    a, new_cache = attn_decode(cfg, p["attn"], xn, positions, kind, cache, lengths)
+    a, cache = attn_decode(cfg, p["attn"], xn, positions, kind, cache, lengths)
     x = x + a
     xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
-    x = x + ffn_apply(cfg, p["ffn"], xn)
-    return x, new_cache
+    return x + ffn_apply(cfg, p["ffn"], xn), cache

@@ -5,7 +5,9 @@ tensors with the reference's keys and shapes: each pattern position's
 parameters are stacked along a leading layer axis
 (``params["blocks"]["pos0_dense"]["attn"]["wq"]`` is (n_superblocks, D,
 q_dim)), and the reference's ``jax.lax.scan`` over that axis becomes a
-Python loop. Pattern-remainder layers run unstacked after the loop.
+Python loop. Pattern-remainder layers run unstacked after the loop: e.g.
+recurrentgemma-2b's 26 layers are 8 x (rec, rec, local_attn) and then
+(rec, rec); rwkv6-7b is 32 x (rwkv,).
 
 API (functions over a params dict, like the reference's):
   init(generator, dtype)          -> params
@@ -14,7 +16,11 @@ API (functions over a params dict, like the reference's):
   prefill(params, batch, s_max)   -> (last_logits, cache, lengths)
   decode_step(params, batch, cache, lengths) -> (logits, cache, lengths + 1)
 
-The decode cache is updated in place (the reference returns a new one).
+The decode cache is updated in place (the reference returns a new one):
+each block kind writes its entries into the cache tensors it is handed,
+views of the stacked buffers (K/V at their slot, the local ring at
+``len % w``, the rec block's ``h`` and ``conv``, the rwkv block's ``S``,
+``shift`` and ``shift_c`` over their old values).
 ``loss`` and ``remat`` come with the training slice; sharding constraints
 have no counterpart on one card.
 """
@@ -120,7 +126,8 @@ class LM:
         """One new token for every sequence in the batch.
 
         batch: {"tokens": (B, 1)}. Returns (logits (B, V), cache, lengths + 1);
-        the cache is written in place.
+        every block writes its cache entries in place, so the blocks'
+        returned dicts are the cache's own tensors and are not read.
         """
         cfg = self.cfg
         x = self._embed(params, batch)
@@ -172,7 +179,8 @@ class LM:
 
 def _place(buf: torch.Tensor, got: torch.Tensor) -> torch.Tensor:
     """Write a prefill cache entry into the preallocated decode buffer, in
-    place: K/V (.., KVH, S, Dh) into (.., KVH, S_max, Dh) at offset 0, cast
-    to the buffer's dtype."""
+    place and cast to the buffer's dtype: K/V (.., KVH, S, Dh) into
+    (.., KVH, S_max, Dh) at offset 0; an entry of the buffer's own shape
+    (a recurrent state, a full local ring) over all of it."""
     buf[tuple(slice(0, n) for n in got.shape)].copy_(got)
     return buf

@@ -1,8 +1,10 @@
 """repro_torch on the card: each CUDA kernel against its plain version on
 the same CUDA tensors (the scheduler's kernels exact: tolerance 0, index
 included; the attention kernels within 2e-5 in f32 and 2e-2 with 16-bit
-inputs, the order of the sums differing), the kernels' input checks, a
-small replay and a small serve on CUDA against the same on CPU.
+inputs, the order of the sums differing; the scans within 1e-5 (RG-LRU)
+and 1e-4 (RWKV-6) in f32, as tests/test_kernels_scans.py), the kernels'
+input checks, a small replay and small serves on CUDA against the same on
+CPU.
 
 Marked ``cuda``; every test skips without a CUDA device. On the card:
 
@@ -219,3 +221,146 @@ def test_small_serve_card_equals_cpu(cuda):
     assert counts["decode_attention"] == cfg.n_layers * 5
     np.testing.assert_array_equal(tokens, cpu_tokens)
     np.testing.assert_allclose(logits, cpu_logits, atol=2e-3, rtol=2e-3)
+
+
+def _randn(rng, shape, cuda, dtype=torch.float32):
+    return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda, dtype)
+
+
+@pytest.mark.parametrize(
+    "B,T,D,dt,with_h0",
+    [
+        (8, 2048, 2560, "f32", False),  # recurrentgemma-2b prefill
+        (2, 37, 100, "f32", True),  # ragged T and D
+        (3, 1, 64, "f32", True),
+        (2, 300, 33, "bf16", False),
+    ],
+)
+def test_rglru_kernel_equals_plain(cuda, B, T, D, dt, with_h0):
+    from repro_torch.kernels.rglru_scan import kernel_cuda, ref
+
+    rng = np.random.default_rng(B * 1000 + T + D)
+    la = torch.from_numpy(-rng.uniform(0.001, 2.0, (B, T, D)).astype(np.float32)).to(
+        cuda, _ATT_DTYPES[dt])
+    gx = _randn(rng, (B, T, D), cuda, _ATT_DTYPES[dt])
+    h0 = _randn(rng, (B, D), cuda) * 0.3 if with_h0 else None
+    got_o, got_h = kernel_cuda.rglru_scan_cuda(la, gx, h0)
+    want_o, want_h = ref.rglru_scan_ref(la, gx, h0)
+    assert got_o.dtype == gx.dtype and got_h.dtype == torch.float32
+    tol = 1e-5 if dt == "f32" else 1e-2
+    torch.testing.assert_close(got_o.float(), want_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got_h, want_h, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "B,H,T,N,dt",
+    [
+        (2, 3, 37, 64, "f32"),  # ragged T
+        (2, 4, 1, 64, "f32"),  # decode
+        (1, 2, 200, 16, "f32"),
+        (2, 16, 64, 32, "bf16"),  # rwkv6-7b reduced 8x: 32-wide heads
+    ],
+)
+def test_rwkv6_kernel_equals_plain(cuda, B, H, T, N, dt):
+    from repro_torch.kernels.rwkv6_scan import kernel_cuda, ref
+
+    rng = np.random.default_rng(B * 100 + T + N)
+    r, k, v = (_randn(rng, (B, H, T, N), cuda, _ATT_DTYPES[dt]) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.2, 0.999, (B, H, T, N)).astype(np.float32)).to(cuda)
+    u = _randn(rng, (H, N), cuda) * 0.5
+    s0 = _randn(rng, (B, H, N, N), cuda) * 0.1
+    want_o, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    got_o, got_s = kernel_cuda.rwkv6_scan_cuda(r, k, v, w, u, s0)
+    tol = 1e-4 if dt == "f32" else 2e-2
+    torch.testing.assert_close(got_o.float(), want_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+    # The state updated in place (decode hands its cache as both).
+    state = s0.clone()
+    o2, s2 = kernel_cuda.rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state)
+    assert s2.data_ptr() == state.data_ptr()
+    torch.testing.assert_close(o2, got_o, atol=0, rtol=0)
+    torch.testing.assert_close(state, got_s, atol=0, rtol=0)
+
+
+def test_rwkv6_kernel_takes_strided_heads(cuda):
+    """r, k, v, w as the (B, S, H, N) -> (B, H, S, N) views the block passes."""
+    from repro_torch.kernels.rwkv6_scan import kernel_cuda, ref
+
+    rng = np.random.default_rng(3)
+    B, S, H, N = 2, 50, 4, 64
+    r, k, v = (_randn(rng, (B, S, H, N), cuda).transpose(1, 2) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.2, 0.99, (B, S, H, N)).astype(np.float32)).to(
+        cuda).transpose(1, 2)
+    u = _randn(rng, (H, N), cuda)
+    got_o, got_s = kernel_cuda.rwkv6_scan_cuda(r, k, v, w, u)
+    want_o, want_s = ref.rwkv6_scan_ref(r, k, v, w, u)
+    torch.testing.assert_close(got_o, want_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+
+
+def test_attention_kernels_at_recurrentgemma_shapes(cuda):
+    """head_dim 256 with MQA: flash (ragged S, f32) and decode with G = 10
+    against a bf16 ring cache."""
+    from repro_torch.kernels.decode_attention import kernel_cuda as dec_k
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel_cuda as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    rng = np.random.default_rng(256)
+    B, H, KVH, S, D = 2, 10, 1, 200, 256
+    q, k, v = (_randn(rng, shape, cuda) for shape in ((B, H, S, D), (B, KVH, S, D),
+                                                      (B, KVH, S, D)))
+    torch.testing.assert_close(fa_k.flash_attention_cuda(q, k, v), fa_ref.attention_ref(q, k, v),
+                               atol=2e-5, rtol=2e-5)
+    qd = _randn(rng, (B, H, D), cuda)
+    kc, vc = (_randn(rng, (B, KVH, 2048, D), cuda, torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([2048, 77], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(dec_k.decode_attention_cuda(qd, kc, vc, lengths),
+                               dec_ref.decode_attention_ref(qd, kc, vc, lengths),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_scan_kernels_refuse_bad_inputs(cuda):
+    from repro_torch.kernels.rglru_scan.kernel_cuda import rglru_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.kernel_cuda import rwkv6_scan_cuda
+
+    x = torch.zeros((2, 5, 8), device=cuda)
+    with pytest.raises(TypeError):
+        rglru_scan_cuda(x, x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan_cuda(x.transpose(0, 1), x.transpose(0, 1))
+    y = torch.zeros((1, 2, 4, 48), device=cuda)
+    with pytest.raises(ValueError, match="head size"):
+        rwkv6_scan_cuda(y, y, y, y, torch.zeros((2, 48), device=cuda))
+    z = torch.zeros((1, 2, 4, 16), device=cuda)
+    with pytest.raises(TypeError):
+        rwkv6_scan_cuda(z, z, z, z.half(), torch.zeros((2, 16), device=cuda))
+
+
+@pytest.mark.parametrize("arch,prompt,tol", [("recurrentgemma-2b", 150, 2e-3),
+                                             ("rwkv6-7b", 40, 2e-2)])
+def test_small_recurrent_serve_card_equals_cpu(cuda, arch, prompt, tol):
+    """Reduced 8x; recurrentgemma's prompt is longer than its window (128).
+    rwkv6's decode re-rounds its token shifts to the bf16 cache at every
+    step, so the sums' order compounds further (tests/test_torch_lm_recurrent.py)."""
+    from repro_torch import configs, kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, layers
+
+    cfg = serve.reduce_config(configs.get_config(arch), 8)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(5), dtype=torch.float32)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, size=(2, prompt))
+    cpu_tokens, cpu_logits = serve.serve_batch(lm, params, prompts, 4, return_logits=True)
+    kernels.reset_launch_counts()
+    card = layers.tree_map(lambda t: t.to(cuda), params)
+    tokens, logits = serve.serve_batch(lm, card, prompts, 4, return_logits=True)
+    counts = kernels.launch_counts()
+    kinds = cfg.pattern * cfg.n_superblocks + cfg.remainder
+    if arch == "rwkv6-7b":
+        assert counts["rwkv6_scan"] == cfg.n_layers * 4
+    else:
+        assert counts["rglru_scan"] == kinds.count("rec")
+        assert counts["decode_attention"] == kinds.count("local_attn") * 3
+    np.testing.assert_array_equal(tokens, cpu_tokens)
+    np.testing.assert_allclose(logits, cpu_logits, atol=tol, rtol=tol)

@@ -86,6 +86,7 @@ def test_cpu_tensors_take_plain_versions():
     assert idx.dtype == torch.int32
     assert kernels.launch_counts() == {
         "costmap": 0, "auction_bid": 0, "flash_attention": 0, "decode_attention": 0,
+        "rglru_scan": 0, "rwkv6_scan": 0,
     }
 
 
@@ -112,6 +113,17 @@ def test_serve_cuda_request_without_cuda_raises():
     lm = LM(serve.reduce_config(configs.get_config("qwen3-0.6b"), 8))
     with pytest.raises(RuntimeError, match="cuda"):
         lm.init_cache(1, 8)
+
+
+def test_scan_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.rglru_scan.kernel_cuda import rglru_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.kernel_cuda import rwkv6_scan_cuda
+
+    x = torch.zeros((1, 2, 4, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_cuda(x[0], x[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6_scan_cuda(x, x, x, x, torch.zeros((2, 16)))
 
 
 def test_attention_wrappers_refuse_cpu_tensors():
