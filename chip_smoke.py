@@ -9,7 +9,11 @@ exits non-zero; nothing is caught):
 1. device   - ``nvidia-smi`` name and power limit (also printed raw, as
               nvidia-smi gives it), torch and CUDA versions.
 2. build    - nvcc builds every kernel source of the port at once
-              (sm_90a), seconds taken and ptxas' register counts.
+              (sm_90a), seconds taken and ptxas' register and spill lines
+              per source. flash_attention.cu is rebuilt on every run, so
+              its ptxas report is always read; fails if any of its
+              instances spills (its 3xTF32 tiles are sized to stay in
+              registers).
 3. kernels  - each kernel against its plain PyTorch version on the card at
               the main path's shapes (exact equality required: tolerance
               0, index mismatches 0; boundary latencies and bid rows with
@@ -39,6 +43,13 @@ exits non-zero; nothing is caught):
               output). Times as in phase 3, plus library_ms: one
               torch.nn.functional.scaled_dot_product_attention call on the
               same inputs (a yardstick only; the port never calls it).
+              Flash's bound_ms with f32 inputs is that of f32-accurate
+              products on the tensor cores (3 TF32 passes at 495
+              TFLOP/s), with bf16 inputs the bf16 tensor cores' (989
+              TFLOP/s); beside it, cuda_core_bound_ms (the bound of the
+              kernel's earlier design, f32 CUDA cores at 67 TFLOP/s for
+              f32 inputs) and tf32_passes (the TF32 passes per operation
+              the kernel takes: 3 for f32 inputs, 1.5 for bf16).
 8. serve    - qwen3-0.6b at full width (28 layers, reduce 1), seeded
               float32 parameters and a bf16 cache: 8 requests of 1,024
               prompt tokens, 64 generated (s_max 1,088), through
@@ -63,8 +74,9 @@ exits non-zero; nothing is caught):
               recurrentgemma-2b's prefill, (8, 10 / 1, 2048, 256) f32 causal,
               and decode attention at its decode, G = 10, head_dim 256, f32
               query against a bf16 ring cache of 2,048, tolerance 2e-5.
-              Times as in phase 7; library_ms null for the scans (no single
-              PyTorch call computes either recurrence).
+              Times and flash's two bounds as in phase 7; library_ms null
+              for the scans (no single PyTorch call computes either
+              recurrence).
 11. serve_recurrentgemma - recurrentgemma-2b at full width (26 layers,
               d_model 2,560, MQA 10 / 1 heads of 256, window 2,048, V
               256,000), seeded f32 parameters, bf16 K/V and conv history:
@@ -103,6 +115,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -117,6 +130,7 @@ if str(ROOT / "src") not in sys.path:
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 SEED = 0
 N_REPS = 21
@@ -271,14 +285,21 @@ def phase_device() -> dict:
 def phase_build() -> None:
     from repro_torch.kernels import KERNELS, build
 
+    # Rebuilt every run: the spill check below reads its ptxas report.
+    build.library_path("flash_attention.cu").unlink(missing_ok=True)
     t0 = time.perf_counter()
     logs = build.build_all([src for _, _, src in KERNELS])
     seconds = time.perf_counter() - t0
     ptxas = {
-        src: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         for src, log in logs.items()
     }
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs), "ptxas": ptxas})
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        logs["flash_attention.cu"])
+    if not spills or any(n != "0" for pair in spills for n in pair):
+        raise AssertionError(f"flash_attention.cu spills registers (or ptxas gave no "
+                             f"report): {spills}")
 
 
 # --------------------------------------------------------------------- #
@@ -604,11 +625,26 @@ def _att_peak(*dtypes) -> float:
     return BF16_OPS_PER_S if all(d == "bf16" for d in dtypes) else F32_OPS_PER_S
 
 
-def flash_bound(B, H, KVH, S, D, dt: str, causal: bool = True):
+# TF32 passes per operation that flash's tensor-core products take: 3 with
+# f32 inputs (3xTF32); bf16 values are exact in TF32, so 1 for Q K^T and 2
+# for P V (P is f32), 1.5 on average. Reported beside the bound, not in it.
+FLASH_TF32_PASSES = {"f32": 3.0, "bf16": 1.5}
+
+
+def flash_bound(B, H, KVH, S, D, dt: str, causal: bool = True) -> dict:
+    """bound_ms / bound_by of the function on the tensor cores: f32-accurate
+    products from f32 inputs take 3 TF32 passes (495 TFLOP/s), bf16 inputs
+    run at the bf16 rate. Beside it the bound of the kernel's earlier
+    CUDA-core design (the same as bound_ms for bf16) and the kernel's
+    TF32 passes."""
     esize = 4 if dt == "f32" else 2
     n_bytes = (2 * B * H * S * D + 2 * B * KVH * S * D) * esize  # q, o; k, v
     pairs = S * (S + 1) // 2 if causal else S * S
-    return bound_ms(n_bytes, 4 * B * H * D * pairs, _att_peak(dt))
+    ops = 4 * B * H * D * pairs
+    cuda_core = bound_ms(n_bytes, ops, _att_peak(dt))
+    b_ms, b_by = bound_ms(n_bytes, 3 * ops, TF32_OPS_PER_S) if dt == "f32" else cuda_core
+    return {"bound_ms": b_ms, "bound_by": b_by, "tf32_passes": FLASH_TF32_PASSES[dt],
+            "cuda_core_bound_ms": cuda_core[0]}
 
 
 def decode_bound(H, KVH, D, lengths, q_dt: str, c_dt: str):
@@ -682,13 +718,12 @@ def phase_attention_kernels() -> dict:
         q, k, v = randn((B, H, S, D), dt), randn((B, KVH, S, D), dt), randn((B, KVH, S, D), dt)
         row = {"shape": [B, H, KVH, S, D], "dtype": dt, "causal": True,
                **check_flash(q, k, v, dt)}
-        b_ms, b_by = flash_bound(B, H, KVH, S, D, dt)
         row.update(
             kernel_ms=time_ms(lambda: fa_k.flash_attention_cuda(q, k, v)),
             device_ms=device_ms(lambda: fa_k.flash_attention_cuda(q, k, v),
                                 ("flash_attention_kernel",)),
             plain_ms=time_ms(lambda: fa_ref.attention_ref(q, k, v)),
-            bound_ms=b_ms, bound_by=b_by,
+            **flash_bound(B, H, KVH, S, D, dt),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)),
         )
@@ -837,7 +872,6 @@ def phase_recurrent_kernels() -> dict:
     B, H, KVH, D = serve_cfg["requests"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     S = serve_cfg["prompt_len"]
     q, k, v = randn((B, H, S, D)), randn((B, KVH, S, D)), randn((B, KVH, S, D))
-    b_ms, b_by = flash_bound(B, H, KVH, S, D, "f32")
     out["flash_attention"].append({
         "shape": [B, H, KVH, S, D], "dtype": "f32", "causal": True,
         **check_flash(q, k, v, "f32"),
@@ -845,7 +879,7 @@ def phase_recurrent_kernels() -> dict:
         "device_ms": device_ms(lambda: fa_k.flash_attention_cuda(q, k, v),
                                ("flash_attention_kernel",), n=3),
         "plain_ms": time_ms(lambda: fa_ref.attention_ref(q, k, v), reps=5, per_rep=2),
-        "bound_ms": b_ms, "bound_by": b_by,
+        **flash_bound(B, H, KVH, S, D, "f32"),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps=5, per_rep=2),
     })

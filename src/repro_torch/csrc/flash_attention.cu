@@ -1,4 +1,5 @@
-// flash_attention: blocked causal (or full) GQA attention, online softmax.
+// flash_attention: blocked causal (or full) GQA attention, online softmax,
+// both products on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel `flash_attention_pallas` (body `_flash_kernel`) in
 // src/repro/kernels/flash_attention/kernel.py and computes what
@@ -11,231 +12,347 @@
 // memory), float32 logits, softmax and accumulation, and the output in q's
 // dtype (f32, bf16 or f16 inputs; bf16/f16 are widened to f32 on load).
 //
-// Bound on an H100 (published peaks, 700 W): operations. At the prefill
-// shape of qwen3-0.6b, (8, 16, 1024, 128) f32 causal, the two products take
-// 4*B*H*D*S(S+1)/2 = 34.4 GFLOP, 0.51 ms at the 67 TFLOP/s f32 peak of the
-// CUDA cores, while the 201 MB of q, k, v and o take 0.06 ms at 3.35 TB/s.
-// This first version does its products with f32 FMAs on the CUDA cores (so
-// f32 inputs keep f32 accuracy); tensor cores (wgmma) are later work.
+// Bound on an H100 (published peaks, 700 W): operations. The two products
+// take 4*B*H*D*P operations, P the (query, key) pairs (S(S+1)/2 causal).
+// They run as warp-level `mma.sync.m16n8k8` TF32 products (495 TFLOP/s
+// dense), and an f32 operand x goes in as two TF32 values, big = rna(x)
+// and small = rna(x - big): a*b ~ a_small*b_big + a_big*b_small +
+// a_big*b_big keeps f32 accuracy (one TF32 pass rounds each operand to
+// 2^-11 relative, too coarse for the 2e-5 tolerance) at 3 passes per
+// product. bf16 and f16 values are exact in TF32 (small = 0), so with those
+// inputs Q K^T takes one pass and P V two (P is f32): 1.5 passes on
+// average. At qwen3-0.6b's prefill, (8, 16, 1024, 128) f32 causal, the
+// products are 34.4 GFLOP, 3 x 34.4 / 495e12 = 0.208 ms; recurrentgemma-2b's
+// (8, 10, 2048, 256) f32 causal, 171.9 GFLOP, 1.042 ms. The 201 MB and 336
+// MB of q, k, v and o take 0.06 and 0.10 ms at 3.35 TB/s.
 //
-// Design. One CTA of 256 threads per (b, h, 64-row query tile); the grid
-// walks query tiles from the last (longest causal row range) to the first,
-// so the heavy tiles start first. The CTA stages its Q tile once and then
-// streams 64-key K/V tiles through shared memory (as f32, rows padded by 4
-// floats so the float4 reads of K rows hit distinct banks), keeping the
-// running (max, sum, acc) triple of its rows in registers:
-//   - thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 16 i
-//     (i < 4) and, of each 64x64 logit tile, columns tx + 16 j (j < 4);
-//     a row's 16 owners are one half-warp, so its max and sum reduce with
-//     four xor shuffles;
-//   - the probabilities P go back to shared memory (over the K tile, which
-//     is no longer read) for the P @ V product, where the thread owns D/16
-//     output columns of its four rows (float4 groups when D % 64 == 0);
-//   - K tiles entirely above the diagonal are never visited; the diagonal
-//     tile and the ragged tail (any S: keys and queries beyond S are zeros,
-//     masked keys get -inf, rows beyond S are not stored) are masked per
-//     element. A row whose every key so far is masked keeps max -inf and
-//     takes exp against 0, so no NaN is formed.
-// 100 KB of shared memory at D = 128, so two CTAs share an SM. At D = 256
-// (recurrentgemma-2b) it is 198,656 bytes, one CTA per SM, and each thread
-// holds 64 accumulator floats: that instance is compiled for one CTA per
-// SM, so ptxas may give it up to 255 registers instead of 128.
+// Design. One CTA of NW warps per (b, h, 16*NW-row query tile); the grid
+// walks query tiles from the last (longest causal key range) to the first,
+// so the heavy tiles start first.
+//   - Each warp owns 16 query rows. Its logit tile S (16 x BK) and its
+//     output accumulator O (16 x D) stay in registers as m16n8k8
+//     accumulator fragments: lane (g, t) = (lane / 4, lane % 4) holds rows
+//     g and g + 8, columns 2t and 2t + 1 of each 8-column block. A row's
+//     max and sum reduce over the 4 lanes of a quad (2 xor shuffles).
+//   - Q K^T: A = Q (rows g, g + 8), B = K^T (key g of the 8-key block),
+//     both read from shared memory. A sum over d does not depend on its
+//     order, so of each 8-wide step d0 the fragments' column (A) and row
+//     (B) t stand for d0 + 2t and t + 4 for d0 + 2t + 1: one 8-byte read
+//     per row gives both. P V: P never leaves registers. The accumulator
+//     fragment of S holds keys 2t and 2t + 1 of each 8-key block, so it is
+//     the A fragment of P V when A's column t stands for key 2t and column
+//     t + 4 for key 2t + 1; the B fragment then reads V rows 2t and 2t + 1
+//     (not t and t + 4). A sum over keys does not depend on their order.
+//     (Fragment layouts: PTX ISA, mma.m16n8k8 .tf32; CuTe's
+//     SM80_16x8x8_F32TF32TF32F32_TN traits give the same.)
+//   - Shared memory: the Q tile (staged once) and a ring of two K/V stages.
+//     Rows are padded so that every fragment read is free of bank
+//     conflicts: Q and K rows to D + 8 floats (8-byte reads at
+//     g*(D + 8) + 2t: each half-warp covers the 32 banks once), V rows to
+//     D + 4 (4-byte reads at 2t*(D + 4) + g: 32 distinct banks). f32
+//     tiles arrive by 16-byte `cp.async.cg` copies: the copy of tile k + 1
+//     is issued right after the barrier that opens tile k and lands while
+//     tile k is computed; one `__syncthreads` per tile (the wrapper refuses
+//     pointers and strides that are not 16-byte aligned).
+//     bf16/f16 tiles are widened by synchronous 16-byte loads into the same
+//     ring (the serving path is f32).
+//   - Masking: key tiles entirely above the diagonal are never loaded; a
+//     warp skips a tile with no key at or below any of its rows, and masks
+//     per element only a tile that crosses its diagonal or the end of the
+//     sequence (any S: rows beyond S load as zeros, masked keys get -inf,
+//     rows beyond S are not stored). A row whose every key so far is
+//     masked keeps max -inf and takes exp against 0, so no NaN is formed.
+//     A warp rescales O only when a row max of its moved (alpha != 1).
+// Tiles (NW warps, BK keys) per head_dim are in `Tile` below, chosen on
+// the card by ptxas' report (no spill) and the measured time:
+// tools/flash_tiles.py builds and times the alternatives side by side
+// (PERF.md records its runs). At D = 256 the O accumulator is 128
+// registers a thread; 8 warps, BK = 16 and two stages take 202,240 bytes
+// of shared memory, one CTA per SM. At D = 128, 8 warps and BK = 64 take
+// 206,848 bytes, one CTA per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
-
-// The K tile's region also holds P (kBQ x (kBK + 4)) once Q K^T is done.
+// NW warps (BQ = 16 * NW query rows), BK keys per K/V stage, and the CTAs
+// per SM the register budget is compiled for.
 template <int D>
-__host__ __device__ constexpr int k_region_floats() {
-  return kBK * (D + 4) > kBQ * (kBK + 4) ? kBK * (D + 4) : kBQ * (kBK + 4);
-}
+struct Tile;
+template <>
+struct Tile<16> { static constexpr int NW = 4, BK = 64, kMinBlocks = 2; };
+template <>
+struct Tile<32> { static constexpr int NW = 4, BK = 64, kMinBlocks = 2; };
+template <>
+struct Tile<64> { static constexpr int NW = 4, BK = 64, kMinBlocks = 2; };
+template <>
+struct Tile<128> { static constexpr int NW = 8, BK = 64, kMinBlocks = 1; };
+template <>
+struct Tile<256> { static constexpr int NW = 8, BK = 16, kMinBlocks = 1; };
 
+// Row strides in shared memory: Q and K rows D + 8 floats (8-byte fragment
+// reads), V rows D + 4 (4-byte reads).
 template <int D>
 __host__ __device__ constexpr int smem_floats() {
-  return kBQ * (D + 4) + k_region_floats<D>() + kBK * D;
+  return (16 * Tile<D>::NW + 2 * Tile<D>::BK) * (D + 8) + 2 * Tile<D>::BK * (D + 4);
 }
 
-// Copies rows [row0, row0 + 64) of one (b, head) slice, D contiguous
-// elements each, into shared memory as f32 with row stride `ld`; rows at or
-// beyond S become zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restrict__ src,
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x, float y);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+template <>
+__device__ __forceinline__ void store2<__half>(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
+
+// Two 16-bit values packed in a 32-bit word, as f32 (first = low half).
+__device__ __forceinline__ float2 widen2(uint32_t w, __nv_bfloat16*) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float2 widen2(uint32_t w, __half*) {
+  __half2 h;
+  *reinterpret_cast<uint32_t*>(&h) = w;
+  return __half22float2(h);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  // src-size 0 writes 16 zero bytes and reads nothing.
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copies rows [row0, row0 + R) of one (b, head) slice, D contiguous
+// elements each, into shared memory as f32 with row stride LD; rows at or
+// beyond S become zeros. f32: asynchronous (cp.async, not waited for here);
+// bf16/f16: synchronous, widened.
+template <typename T, int D, int LD, int R, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
                                           long long row_stride, int row0, int S) {
-  for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
-    const int r = e / D, d = e % D;
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int C = D / E;           // chunks per row
+#pragma unroll
+  for (int i = 0; i < (R * C + NT - 1) / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    if ((R * C) % NT != 0 && e >= R * C) break;
+    const int r = e / C, c = (e % C) * E;
     const int row = row0 + r;
-    dst[r * ld + d] = row < S ? to_f(src[(long long)row * row_stride + d]) : 0.0f;
+    const bool ok = row < S;
+    const T* from = src + (ok ? (long long)row * row_stride + c : 0);
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async16(dst + r * LD + c, from, ok);
+    } else {
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (ok) w = *reinterpret_cast<const uint4*>(from);
+      const float2 a = widen2(w.x, (T*)nullptr), b = widen2(w.y, (T*)nullptr);
+      const float2 x = widen2(w.z, (T*)nullptr), y = widen2(w.w, (T*)nullptr);
+      *reinterpret_cast<float4*>(dst + r * LD + c) = make_float4(a.x, a.y, b.x, b.y);
+      *reinterpret_cast<float4*>(dst + r * LD + c + 4) = make_float4(x.x, x.y, y.x, y.y);
+    }
   }
 }
 
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small + (a remainder below 2^-22 |x|), both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c += A B, A 16 x 8 (row), B 8 x 8 (col), TF32 operands, f32 accumulator.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, (D > 128 ? 1 : 2))
+__global__ void __launch_bounds__(32 * Tile<D>::NW, Tile<D>::kMinBlocks)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int H, int KVH,
                            int S, long long qsB, long long qsH, long long qsS,
                            long long ksB, long long ksH, long long ksS, long long vsB,
                            long long vsH, long long vsS, float scale, int causal) {
-  constexpr int LDQ = D + 4;  // padded rows: float4 reads of K rows by tx
-  constexpr int LDP = kBK + 4;
-  constexpr int NC = D / 16;  // output columns per thread
-  constexpr bool kVec = (D % 64) == 0;
+  constexpr int NW = Tile<D>::NW, BK = Tile<D>::BK;
+  constexpr int BQ = 16 * NW, NT = 32 * NW, LDK = D + 8, LDV = D + 4;
+  constexpr int NJ = BK / 8;  // 8-key blocks of a tile
+  constexpr int ND = D / 8;   // 8-column blocks of O
+  // f32 operands take 3 TF32 passes per product; bf16/f16 ones are exact
+  // in TF32: 1 pass for Q K^T, 2 for P V (P is f32).
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + kBQ * LDQ;  // also holds P (kBQ x LDP) after Q K^T
-  float* sV = sK + k_region_floats<D>();
-  float* sP = sK;
+  float* sK = sQ + BQ * LDK;  // 2 stages of BK x LDK
+  float* sV = sK + 2 * BK * LDK;  // 2 stages of BK x LDV
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int nq = gridDim.z;
-  const int qt = nq - 1 - blockIdx.z;
-  const int q0 = qt * kBQ;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int kvh = h / (H / KVH);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 16 * warp;  // the warp's first query row
 
   const T* qb = q + b * qsB + h * qsH;
   const T* kb = k + b * ksB + kvh * ksH;
   const T* vb = v + b * vsB + kvh * vsH;
-  load_tile<T, D>(sQ, LDQ, qb, qsS, q0, S);
+  const int nk_all = (S + BK - 1) / BK;
+  const int nk = causal ? min(nk_all, (q0 + BQ - 1) / BK + 1) : nk_all;
 
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
+  load_rows<T, D, LDK, BQ, NT>(sQ, qb, qsS, q0, S);
+  load_rows<T, D, LDK, BK, NT>(sK, kb, ksS, 0, S);
+  load_rows<T, D, LDV, BK, NT>(sV, vb, vsS, 0, S);
+  cp_async_commit();
 
-  const int nk_all = (S + kBK - 1) / kBK;
-  const int nk = causal ? min(nk_all, (q0 + kBQ - 1) / kBK + 1) : nk_all;
+  float acc[ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  const float* qw = sQ + 16 * warp * LDK;
+
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // previous tile's P and V reads are done
-    load_tile<T, D>(sK, LDQ, kb, ksS, k0, S);
-    load_tile<T, D>(sV, D, vb, vsS, k0, S);
+    cp_async_wait_all();
+    // Tile kt is in place for every thread, and every warp is done with
+    // tile kt - 1, whose stage the next copies overwrite.
     __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&sQ[(ty + 16 * i) * LDQ + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * LDQ + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(qv[i].x, kv[j].x, t);
-          t = fmaf(qv[i].y, kv[j].y, t);
-          t = fmaf(qv[i].z, kv[j].z, t);
-          t = fmaf(qv[i].w, kv[j].w, t);
-          s[i][j] = t;
-        }
+    if (kt + 1 < nk) {
+      const int st = (kt + 1) & 1;
+      load_rows<T, D, LDK, BK, NT>(sK + st * BK * LDK, kb, ksS, (kt + 1) * BK, S);
+      load_rows<T, D, LDV, BK, NT>(sV + st * BK * LDV, vb, vsS, (kt + 1) * BK, S);
+      cp_async_commit();
     }
+    const int k0 = kt * BK;
+    if (r0 >= S || (causal && k0 > r0 + 15)) continue;  // no valid pair (warp-uniform)
+    const float* kt_s = sK + (kt & 1) * BK * LDK;
+    const float* vt_s = sV + (kt & 1) * BK * LDV;
 
-    // Scale, mask, online softmax over this tile's 64 keys.
+    // S = Q K^T over this tile's NJ blocks of 8 keys. Of each 8-wide step
+    // d0, A column t and B row t stand for d0 + 2t, column and row t + 4
+    // for d0 + 2t + 1: one 8-byte read gives both.
+    float s[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < S && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+    for (int d0 = 0; d0 < D; d0 += 8) {
+      const float2 lo = *reinterpret_cast<const float2*>(qw + g * LDK + d0 + 2 * t);
+      const float2 hi = *reinterpret_cast<const float2*>(qw + (g + 8) * LDK + d0 + 2 * t);
+      const float qx[4] = {lo.x, hi.x, lo.y, hi.y};
+      uint32_t qa[4], qs[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (kF32) split(qx[i], qa[i], qs[i]);
+        else qa[i] = __float_as_uint(qx[i]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_use = m_new == -INFINITY ? 0.0f : m_new;
-      const float alpha = expf(m[i] - m_use);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_use);
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-
-    __syncthreads();  // every thread is done reading the K tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-#pragma unroll 2
-    for (int c = 0; c < kBK; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&sP[(ty + 16 * i) * LDP + c]);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = sV + (c + cc) * D;
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          p[i] = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
-        if constexpr (kVec) {
-#pragma unroll
-          for (int k4 = 0; k4 < D / 64; ++k4) {
-            const float4 vv = *reinterpret_cast<const float4*>(&vrow[k4 * 64 + tx * 4]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              acc[i][k4 * 4 + 0] = fmaf(p[i], vv.x, acc[i][k4 * 4 + 0]);
-              acc[i][k4 * 4 + 1] = fmaf(p[i], vv.y, acc[i][k4 * 4 + 1]);
-              acc[i][k4 * 4 + 2] = fmaf(p[i], vv.z, acc[i][k4 * 4 + 2]);
-              acc[i][k4 * 4 + 3] = fmaf(p[i], vv.w, acc[i][k4 * 4 + 3]);
-            }
-          }
+      for (int j = 0; j < NJ; ++j) {
+        const float2 kk =
+            *reinterpret_cast<const float2*>(kt_s + (8 * j + g) * LDK + d0 + 2 * t);
+        const float k0v = kk.x, k1v = kk.y;
+        if constexpr (kF32) {
+          uint32_t b0, b1, s0, s1;
+          split(k0v, b0, s0);
+          split(k1v, b1, s1);
+          mma(s[j], qs, b0, b1);
+          mma(s[j], qa, s0, s1);
+          mma(s[j], qa, b0, b1);
         } else {
+          mma(s[j], qa, __float_as_uint(k0v), __float_as_uint(k1v));
+        }
+      }
+    }
+
+    // Scale, mask, online softmax over the tile (rows g and g + 8).
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > r0);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-          for (int cn = 0; cn < NC; ++cn) {
-            const float vv = vrow[tx + 16 * cn];
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][cn] = fmaf(p[i], vv, acc[i][cn]);
-          }
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (edge) {
+          const int row = r0 + g + (e >> 1) * 8;
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          if (!(col < S && (!causal || col <= row))) x = -INFINITY;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      m_use[i] = m_new == -INFINITY ? 0.0f : m_new;
+      alpha[i] = expf(m[i] - m_use[i]);
+      m[i] = m_new;
+    }
+    float rs[2] = {0.0f, 0.0f};  // this lane's share of the row sums
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m_use[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+    l[0] = l[0] * alpha[0] + rs[0];
+    l[1] = l[1] * alpha[1] + rs[1];
+    if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+    }
+
+    // O += P V: A column t is key 2t, column t + 4 key 2t + 1.
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t pa[4], ps[4];
+      split(s[j][0], pa[0], ps[0]);
+      split(s[j][2], pa[1], ps[1]);
+      split(s[j][1], pa[2], ps[2]);
+      split(s[j][3], pa[3], ps[3]);
+      const float* v0 = vt_s + (8 * j + 2 * t) * LDV + g;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const float x0 = v0[8 * n], x1 = v0[LDV + 8 * n];
+        if constexpr (kF32) {
+          uint32_t b0, b1, s0, s1;
+          split(x0, b0, s0);
+          split(x1, b1, s1);
+          mma(acc[n], ps, b0, b1);
+          mma(acc[n], pa, s0, s1);
+          mma(acc[n], pa, b0, b1);
+        } else {
+          mma(acc[n], ps, __float_as_uint(x0), __float_as_uint(x1));
+          mma(acc[n], pa, __float_as_uint(x0), __float_as_uint(x1));
         }
       }
     }
@@ -243,21 +360,24 @@ __global__ void __launch_bounds__(kThreads, (D > 128 ? 1 : 2))
 
   T* ob = o + ((long long)b * H + h) * S * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = r0 + g + 8 * i;
     if (row >= S) continue;
     const float inv_l = 1.0f / l[i];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = kVec ? (c / 4) * 64 + tx * 4 + (c % 4) : tx + 16 * c;
-      ob[(long long)row * D + d] = from_f<T>(acc[i][c] * inv_l);
-    }
+    for (int n = 0; n < ND; ++n)
+      store2<T>(ob + (long long)row * D + 8 * n + 2 * t, acc[n][2 * i] * inv_l,
+                acc[n][2 * i + 1] * inv_l);
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
            int S, const long long* st, float scale, int causal, cudaStream_t stream) {
+  constexpr int BQ = 16 * Tile<D>::NW;
+  if ((S + BQ - 1) / BQ > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)smem_floats<D>() * sizeof(float);
   static bool configured = false;
   if (!configured) {
@@ -267,8 +387,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid(H, B, (S + kBQ - 1) / kBQ);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(H, B, (S + BQ - 1) / BQ);
+  flash_attention_kernel<T, D><<<grid, 32 * Tile<D>::NW, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, H, KVH, S, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], scale, causal);
   return (int)cudaGetLastError();
@@ -293,15 +413,15 @@ extern "C" {
 
 // dtype: 0 = f32, 1 = bf16, 2 = f16 (q, k, v and o alike). D in {16, 32,
 // 64, 128, 256}. Strides are in elements, (batch, head, sequence) for q, k, v in
-// that order; the last dimension is contiguous. o is contiguous (B, H, S, D).
+// that order; the last dimension is contiguous, and every pointer and
+// stride is 16-byte aligned. o is contiguous (B, H, S, D).
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
                            int B, int H, int KVH, int S, int D, long long qsB,
                            long long qsH, long long qsS, long long ksB, long long ksH,
                            long long ksS, long long vsB, long long vsH, long long vsS,
                            float scale, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || S <= 0 || B > 65535 ||
-      (S + kBQ - 1) / kBQ > 65535)
+  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || S <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsB, qsH, qsS, ksB, ksH, ksS, vsB, vsH, vsS};
   cudaStream_t s = (cudaStream_t)stream;

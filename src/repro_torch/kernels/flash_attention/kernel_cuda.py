@@ -3,10 +3,12 @@
 Replaces `repro.kernels.flash_attention.kernel.flash_attention_pallas`. The
 source's header states its bound on the card and the tiling. The wrapper
 validates its inputs (q, k, v may be strided views, such as the heads split
-out of a projection, as long as the last dimension is contiguous), allocates
-the contiguous (B, H, S, D) output in q's dtype, launches on the current
-stream and raises if the launch was refused. ``flash_attention_cuda.launches``
-counts launches.
+out of a projection, as long as the last dimension is contiguous and the
+data pointers and the batch, head and sequence strides are multiples of
+16 bytes: the kernel copies K/V tiles in 16-byte `cp.async` chunks),
+allocates the contiguous (B, H, S, D) output in q's dtype, launches on the
+current stream and raises if the launch was refused.
+``flash_attention_cuda.launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -46,6 +48,18 @@ def _check(t: torch.Tensor, name: str, device, dtype) -> None:
         raise ValueError(f"flash_attention: {name}'s last dimension must be contiguous")
 
 
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raises unless ``t``'s data pointer and its batch, head and sequence
+    strides (those of dimensions longer than 1) are multiples of 16 bytes."""
+    esize = t.element_size()
+    strides = [s * esize for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    if t.data_ptr() % 16 or any(s % 16 for s in strides):
+        raise ValueError(
+            f"flash_attention: {name} is not 16-byte aligned (data pointer % 16 = "
+            f"{t.data_ptr() % 16}, strides {tuple(t.stride())} of {esize}-byte elements)"
+        )
+
+
 def flash_attention_cuda(
     q: torch.Tensor,  # (B, H, S, D)
     k: torch.Tensor,  # (B, KVH, S, D)
@@ -75,6 +89,8 @@ def flash_attention_cuda(
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        check_aligned(t, name)
     lib = build.load(SOURCE, _bind)
     strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
     with torch.cuda.device(device):

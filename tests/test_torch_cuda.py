@@ -121,6 +121,10 @@ def _att_tol(*dtypes):
         (2, 4, 2, 257, 32, "bf16", True),
         (1, 4, 4, 130, 64, "f16", False),
         (2, 16, 8, 1024, 128, "f32", True),  # qwen3-0.6b per-layer prefill
+        (2, 10, 1, 203, 256, "bf16", True),  # head_dim 256, S not a multiple of the tiles
+        (1, 4, 2, 77, 256, "f16", False),
+        (2, 4, 2, 77, 128, "bf16", True),
+        (1, 10, 1, 2048, 256, "f32", True),  # recurrentgemma-2b per-layer prefill
     ],
 )
 def test_flash_kernel_equals_plain(cuda, B, H, KVH, S, D, dt, causal):
@@ -198,6 +202,23 @@ def test_attention_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         decode_attention_cuda(y[:, :, 0], y.transpose(2, 3).contiguous().transpose(2, 3),
                               y, lengths)
+
+
+def test_flash_kernel_refuses_misaligned_views(cuda):
+    """K/V tiles arrive in 16-byte cp.async copies: a view one element off
+    a 16-byte boundary, or with a sequence stride that is not a multiple of
+    16 bytes, is refused before any launch."""
+    from repro_torch.kernels.flash_attention.kernel_cuda import flash_attention_cuda
+
+    x = torch.zeros((1, 2, 8, 64), device=cuda)
+    off = torch.zeros(2 * 8 * 64 + 1, device=cuda)[1:].view(1, 2, 8, 64)
+    assert off.storage_offset() == 1
+    launches = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(off, x, x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(x, x, torch.zeros((1, 2, 8, 66), device=cuda)[..., :64])
+    assert flash_attention_cuda.launches == launches
 
 
 def test_small_serve_card_equals_cpu(cuda):
