@@ -10,10 +10,10 @@ exits non-zero; nothing is caught):
               nvidia-smi gives it), torch and CUDA versions.
 2. build    - nvcc builds every kernel source of the port at once
               (sm_90a), seconds taken and ptxas' register and spill lines
-              per source. flash_attention.cu is rebuilt on every run, so
-              its ptxas report is always read; fails if any of its
-              instances spills (its 3xTF32 tiles are sized to stay in
-              registers).
+              per source. flash_attention.cu and decode_attention.cu are
+              rebuilt on every run, so their ptxas reports are always read;
+              fails if any instance of either spills (or a report is
+              missing).
 3. kernels  - each kernel against its plain PyTorch version on the card at
               the main path's shapes (exact equality required: tolerance
               0, index mismatches 0; boundary latencies and bid rows with
@@ -37,7 +37,9 @@ exits non-zero; nothing is caught):
               plain versions on the card at the qwen3-0.6b serving shapes,
               in the dtypes the serving path gives them (f32 prefill;
               f32 query against a bf16 cache in decode) and with bf16
-              inputs; tolerance 2e-5 abs/rel when every input is f32 (as
+              inputs, then both at head_dim 42 (a small shape: flash
+              zero-pads it, decode takes its element path); tolerance 2e-5
+              abs/rel when every input is f32 (as
               tests/test_kernels_attention.py: the sums run in another
               order), 2e-2 with bf16 inputs (one bf16 rounding of the
               output). Times as in phase 3, plus library_ms: one
@@ -49,7 +51,11 @@ exits non-zero; nothing is caught):
               TFLOP/s); beside it, cuda_core_bound_ms (the bound of the
               kernel's earlier design, f32 CUDA cores at 67 TFLOP/s for
               f32 inputs) and tf32_passes (the TF32 passes per operation
-              the kernel takes: 3 for f32 inputs, 1.5 for bf16).
+              the kernel takes: 3 for f32 inputs, 1.5 for bf16). Decode
+              rows also give device_ms_cold: the kernel's device time with
+              the L2 flushed before each call (a 128 MB buffer zeroed and
+              read back inside the timed call; neither is counted), as a
+              decode step finds the cache after the other layers' weights.
 8. serve    - qwen3-0.6b at full width (28 layers, reduce 1), seeded
               float32 parameters and a bf16 cache: 8 requests of 1,024
               prompt tokens, 64 generated (s_max 1,088), through
@@ -57,7 +63,8 @@ exits non-zero; nothing is caught):
               step, tokens/s, peak device memory; launches must be exactly
               28 flash and 28 * 63 decode. The kernels are checked again
               against their plain versions on layer-0 tensors captured
-              from this run.
+              from this run. The decode profile gives the device time per
+              step and decode_attention's device ms per call in it.
 9. serve_parity - the same path at reduce 8 with GQA restored (4 query
               heads over 2 KV heads), 2 requests, 64-token prompts, 16
               generated, the same parameters on the card and on the CPU:
@@ -176,6 +183,13 @@ KERNEL_INFO = {
     },
 }
 SCHEDULER_KERNELS = ("costmap", "auction_bid")
+# Sources rebuilt on every run whose ptxas reports must show no spill.
+SPILL_GATED = ("flash_attention.cu", "decode_attention.cu")
+DECODE_KERNEL = ("decode_attention_kernel",)
+L2_FLUSH_BYTES = 128 * 2**20  # more than the H100's 50 MB L2
+# A small shape at a head_dim no kernel is compiled for (qwen3-0.6b's at
+# --reduce 3): (B, H, KVH, S, D).
+ODD_HEAD_DIM_SHAPE = (2, 6, 2, 200, 42)
 SERVE_KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "rwkv6_scan")
 
 # The LM serving path: qwen3-0.6b, full width; 8 requests of 1,024 prompt
@@ -261,6 +275,30 @@ def device_ms(fn, kernel_names, n: int = N_PER_REP):
     return total_us / n / 1e3 if total_us else None
 
 
+def decode_times(q, k_cache, v_cache, lengths) -> dict:
+    """Call, warm device and cold device (L2 flushed before each call) ms of
+    the decode kernel on these inputs."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel_cuda as dec_k
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=q.device)
+
+    def cold():
+        flush.zero_()
+        flush.sum()  # read back: no dirty line is left for the call to write back
+        dec_k.decode_attention_cuda(q, k_cache, v_cache, lengths)
+
+    out = {
+        "kernel_ms": time_ms(lambda: dec_k.decode_attention_cuda(q, k_cache, v_cache, lengths)),
+        "device_ms": device_ms(lambda: dec_k.decode_attention_cuda(q, k_cache, v_cache, lengths),
+                               DECODE_KERNEL),
+        "device_ms_cold": device_ms(cold, DECODE_KERNEL),
+    }
+    del flush
+    return out
+
+
 def phase_device() -> dict:
     import torch
 
@@ -285,8 +323,9 @@ def phase_device() -> dict:
 def phase_build() -> None:
     from repro_torch.kernels import KERNELS, build
 
-    # Rebuilt every run: the spill check below reads its ptxas report.
-    build.library_path("flash_attention.cu").unlink(missing_ok=True)
+    # Rebuilt every run: the spill check below reads their ptxas reports.
+    for src in SPILL_GATED:
+        build.library_path(src).unlink(missing_ok=True)
     t0 = time.perf_counter()
     logs = build.build_all([src for _, _, src in KERNELS])
     seconds = time.perf_counter() - t0
@@ -295,11 +334,10 @@ def phase_build() -> None:
         for src, log in logs.items()
     }
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs), "ptxas": ptxas})
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                        logs["flash_attention.cu"])
-    if not spills or any(n != "0" for pair in spills for n in pair):
-        raise AssertionError(f"flash_attention.cu spills registers (or ptxas gave no "
-                             f"report): {spills}")
+    for src in SPILL_GATED:
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", logs[src])
+        if not spills or any(n != "0" for pair in spills for n in pair):
+            raise AssertionError(f"{src} spills registers (or ptxas gave no report): {spills}")
 
 
 # --------------------------------------------------------------------- #
@@ -700,7 +738,6 @@ def phase_attention_kernels() -> dict:
     import torch.nn.functional as F
 
     from repro_torch import configs
-    from repro_torch.kernels.decode_attention import kernel_cuda as dec_k
     from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.flash_attention import kernel_cuda as fa_k
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -742,9 +779,7 @@ def phase_attention_kernels() -> dict:
         b_ms, b_by = decode_bound(H, KVH, D, lengths_np, q_dt, c_dt)
         lib_args = _sdpa_decode_args(q, kc, vc, lengths)
         row.update(
-            kernel_ms=time_ms(lambda: dec_k.decode_attention_cuda(q, kc, vc, lengths)),
-            device_ms=device_ms(lambda: dec_k.decode_attention_cuda(q, kc, vc, lengths),
-                                ("decode_partial_kernel", "decode_combine_kernel")),
+            **decode_times(q, kc, vc, lengths),
             plain_ms=time_ms(lambda: dec_ref.decode_attention_ref(q, kc, vc, lengths)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -752,6 +787,39 @@ def phase_attention_kernels() -> dict:
         )
         out["decode_attention"].append(row)
         del q, kc, vc, lib_args
+
+    # A head_dim no kernel is compiled for: flash in f32, decode with an f32
+    # query against a bf16 cache.
+    B, H, KVH, S, D = ODD_HEAD_DIM_SHAPE
+    q, k, v = randn((B, H, S, D), "f32"), randn((B, KVH, S, D), "f32"), randn((B, KVH, S, D), "f32")
+    row = {"shape": [B, H, KVH, S, D], "dtype": "f32", "causal": True,
+           **check_flash(q, k, v, "f32")}
+    row.update(
+        kernel_ms=time_ms(lambda: fa_k.flash_attention_cuda(q, k, v)),
+        device_ms=device_ms(lambda: fa_k.flash_attention_cuda(q, k, v),
+                            ("flash_attention_kernel",)),
+        plain_ms=time_ms(lambda: fa_ref.attention_ref(q, k, v)),
+        **flash_bound(B, H, KVH, S, D, "f32"),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+    )
+    out["flash_attention"].append(row)
+    lengths_np = np.array([S, S // 2 + 1], np.int32)
+    lengths = torch.from_numpy(lengths_np).to("cuda")
+    q = randn((B, H, D), "f32")
+    kc, vc = randn((B, KVH, S, D), "bf16"), randn((B, KVH, S, D), "bf16")
+    b_ms, b_by = decode_bound(H, KVH, D, lengths_np, "f32", "bf16")
+    lib_args = _sdpa_decode_args(q, kc, vc, lengths)
+    out["decode_attention"].append({
+        "shape": [B, H, KVH, S, D], "q_dtype": "f32", "cache_dtype": "bf16",
+        "lengths": lengths_np.tolist(), **check_decode(q, kc, vc, lengths, "f32", "bf16"),
+        **decode_times(q, kc, vc, lengths),
+        "plain_ms": time_ms(lambda: dec_ref.decode_attention_ref(q, kc, vc, lengths)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            *lib_args[:3], attn_mask=lib_args[3], enable_gqa=True)),
+    })
+    del q, k, v, kc, vc, lib_args
 
     emit({"phase": "attention_kernels", "tolerance": ATT_TOL,
           "library": "torch.nn.functional.scaled_dot_product_attention (yardstick only)",
@@ -811,7 +879,6 @@ def phase_recurrent_kernels() -> dict:
     import torch.nn.functional as F
 
     from repro_torch import configs
-    from repro_torch.kernels.decode_attention import kernel_cuda as dec_k
     from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.flash_attention import kernel_cuda as fa_k
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -894,9 +961,7 @@ def phase_recurrent_kernels() -> dict:
     out["decode_attention"].append({
         "shape": [B, H, KVH, ring, D], "q_dtype": "f32", "cache_dtype": "bf16",
         "lengths": lengths_np.tolist(), **check_decode(q, kc, vc, lengths, "f32", "bf16"),
-        "kernel_ms": time_ms(lambda: dec_k.decode_attention_cuda(q, kc, vc, lengths)),
-        "device_ms": device_ms(lambda: dec_k.decode_attention_cuda(q, kc, vc, lengths),
-                               ("decode_partial_kernel", "decode_combine_kernel")),
+        **decode_times(q, kc, vc, lengths),
         "plain_ms": time_ms(lambda: dec_ref.decode_attention_ref(q, kc, vc, lengths)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -1098,12 +1163,16 @@ def decode_profile(lm, params, prompts, gen: int, steps: int = 4) -> dict:
         sync()
         wall = time.perf_counter() - t0
     by_kernel, host, launches = {}, {}, 0
+    dec_ms, dec_calls = 0.0, 0
     for evt in prof.key_averages():
         dev = getattr(evt, "device_time_total", 0.0) or 0.0
         if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
             if dev > 0:
                 by_kernel[evt.key] = dev / steps / 1e3
                 launches += evt.count
+                if any(k in evt.key for k in DECODE_KERNEL):
+                    dec_ms += dev / 1e3
+                    dec_calls += evt.count
         elif evt.self_cpu_time_total > 0:
             host[evt.key] = (evt.self_cpu_time_total / steps / 1e3, evt.count / steps)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -1113,6 +1182,8 @@ def decode_profile(lm, params, prompts, gen: int, steps: int = 4) -> dict:
         "profiled_wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": sum(by_kernel.values()) if by_kernel else None,
         "kernels_per_step": launches / steps,
+        "decode_attention_device_ms_per_call": dec_ms / dec_calls if dec_calls else None,
+        "decode_attention_calls_per_step": dec_calls / steps,
         "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
         "top_host_ops_ms_calls_per_step": [[k[:60], *v] for k, v in top_host],
     }
@@ -1268,6 +1339,7 @@ def _entry(name: str, main: dict, launches: int) -> dict:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        **({"device_ms_cold": main["device_ms_cold"]} if "device_ms_cold" in main else {}),
         "shape": main["shape"],
     }
 

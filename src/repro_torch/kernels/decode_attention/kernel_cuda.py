@@ -1,11 +1,13 @@
 """ctypes wrapper of the CUDA decode-attention kernel (``csrc/decode_attention.cu``).
 
 Replaces `repro.kernels.decode_attention.kernel.decode_attention_pallas`.
-The source's header states its bound on the card and the flash-decoding
-split. The wrapper validates its inputs (q may be a strided (B, H, D) view
-with a contiguous last dimension; the caches must be contiguous), allocates
-the (B, H, D) output in q's dtype and the partials' workspace, launches both
-kernels on the current stream and raises if a launch was refused.
+The source's header states its bound on the card and its design: splits of
+the sequence axis sized to the card's SMs, combined in one launch through
+the distributed shared memory of a thread-block cluster. The wrapper
+validates its inputs (q may be a strided (B, H, D) view with a contiguous
+last dimension; the caches must be contiguous; any head_dim a block's
+shared memory holds), allocates the (B, H, D) output in q's dtype, launches
+on the current stream and raises if the launch was refused.
 ``decode_attention_cuda.launches`` counts calls that launched.
 """
 
@@ -21,18 +23,34 @@ from .. import build
 SOURCE = "decode_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+_CHECKED = set()  # shapes the source's plan accepts, per device
+
 
 def _bind(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
     ll = ctypes.c_longlong
-    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll,
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ll, ll,
                                             ctypes.c_float, p]
     lib.decode_attention_launch.restype = ctypes.c_int
-    lib.decode_attention_workspace.argtypes = [i, i, i, i]
-    lib.decode_attention_workspace.restype = ll
+    lib.decode_attention_splits.argtypes = [i, i, i, i, i, i]
+    lib.decode_attention_splits.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
+
+
+def _check_shape(lib, device, B, H, KVH, S, D, cache_dtype) -> None:
+    """Raises for a shape the kernel cannot take (its plan on this device)."""
+    key = (device.index, B, H, KVH, S, D, cache_dtype)
+    if key in _CHECKED:
+        return
+    n = lib.decode_attention_splits(B, H, KVH, S, D, cache_dtype)
+    if n == 0:
+        raise ValueError(f"decode_attention: head_dim {D} (or the grid of B={B}, "
+                         f"KVH={KVH}) is beyond what the kernel's blocks hold")
+    if n < 0:
+        raise RuntimeError("decode_attention: no CUDA device to plan for")
+    _CHECKED.add(key)
 
 
 def decode_attention_cuda(
@@ -68,28 +86,24 @@ def decode_attention_cuda(
         raise ValueError(f"decode_attention: {lengths.shape[0]} lengths for {B} sequences")
     if KVH == 0 or H % KVH:
         raise ValueError(f"decode_attention: {H} heads do not group over {KVH} KV heads")
-    if D % 4 or q.stride(-1) != 1:
-        raise ValueError("decode_attention: head_dim must be a multiple of 4 and q's "
-                         "last dimension contiguous")
-    align = 16 if k_cache.dtype == torch.float32 else 8
+    if q.stride(-1) != 1:
+        raise ValueError("decode_attention: q's last dimension must be contiguous")
     for t, name in ((k_cache, "k_cache"), (v_cache, "v_cache")):
-        if not t.is_contiguous() or t.data_ptr() % align:
-            raise ValueError(f"decode_attention: {name} must be contiguous and "
-                             f"{align}-byte aligned")
+        if not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} must be contiguous")
     if scale is None:
         scale = 1.0 / (D**0.5)
     if q.numel() == 0 or S == 0:
         raise ValueError(f"decode_attention: empty shapes q {tuple(q.shape)}, S={S}")
     out = torch.empty((B, H, D), dtype=q.dtype, device=device)
     lib = build.load(SOURCE, _bind)
-    ws = torch.empty(lib.decode_attention_workspace(B, H, S, D), dtype=torch.float32,
-                     device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        _check_shape(lib, device, B, H, KVH, S, D, DTYPES[k_cache.dtype])
         rc = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), DTYPES[q.dtype], DTYPES[k_cache.dtype],
-            B, H, KVH, S, D, q.stride(0), q.stride(1), float(scale), stream,
+            out.data_ptr(), DTYPES[q.dtype], DTYPES[k_cache.dtype], B, H, KVH, S, D,
+            q.stride(0), q.stride(1), float(scale), stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -3,12 +3,18 @@
 Replaces `repro.kernels.flash_attention.kernel.flash_attention_pallas`. The
 source's header states its bound on the card and the tiling. The wrapper
 validates its inputs (q, k, v may be strided views, such as the heads split
-out of a projection, as long as the last dimension is contiguous and the
-data pointers and the batch, head and sequence strides are multiples of
-16 bytes: the kernel copies K/V tiles in 16-byte `cp.async` chunks),
-allocates the contiguous (B, H, S, D) output in q's dtype, launches on the
-current stream and raises if the launch was refused.
+out of a projection, as long as the last dimension is contiguous), allocates
+the contiguous (B, H, S, D) output in q's dtype, launches on the current
+stream and raises if the launch was refused.
 ``flash_attention_cuda.launches`` counts launches.
+
+The kernel is compiled for the head_dims in ``HEAD_DIMS``. Any other
+head_dim up to 256 runs on it zero-padded to the next of them, with the
+scale kept at 1/sqrt of the original: zero columns change neither Q K^T
+nor the output columns that are kept, which are sliced back. The kernel
+copies K/V tiles in 16-byte `cp.async` chunks, so a view whose data pointer
+or batch, head or sequence stride is not a multiple of 16 bytes is copied
+to contiguous storage first.
 """
 
 from __future__ import annotations
@@ -48,16 +54,12 @@ def _check(t: torch.Tensor, name: str, device, dtype) -> None:
         raise ValueError(f"flash_attention: {name}'s last dimension must be contiguous")
 
 
-def check_aligned(t: torch.Tensor, name: str) -> None:
-    """Raises unless ``t``'s data pointer and its batch, head and sequence
-    strides (those of dimensions longer than 1) are multiples of 16 bytes."""
+def aligned(t: torch.Tensor) -> bool:
+    """Whether ``t``'s data pointer and its batch, head and sequence strides
+    (those of dimensions longer than 1) are multiples of 16 bytes."""
     esize = t.element_size()
     strides = [s * esize for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-    if t.data_ptr() % 16 or any(s % 16 for s in strides):
-        raise ValueError(
-            f"flash_attention: {name} is not 16-byte aligned (data pointer % 16 = "
-            f"{t.data_ptr() % 16}, strides {tuple(t.stride())} of {esize}-byte elements)"
-        )
+    return not (t.data_ptr() % 16 or any(s % 16 for s in strides))
 
 
 def flash_attention_cuda(
@@ -82,15 +84,20 @@ def flash_attention_cuda(
                          f"do not match q {tuple(q.shape)}")
     if KVH == 0 or H % KVH:
         raise ValueError(f"flash_attention: {H} heads do not group over {KVH} KV heads")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
+    if D > HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention: head_dim {D} is above the largest the kernel "
+                         f"takes, {HEAD_DIMS[-1]}")
     if scale is None:
         scale = 1.0 / (D**0.5)
+    if D not in HEAD_DIMS and q.numel() and k.numel():
+        Dp = next(d for d in HEAD_DIMS if d > D)
+        q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)[..., :D].contiguous()
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        check_aligned(t, name)
+    q, k, v = (t if aligned(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     lib = build.load(SOURCE, _bind)
     strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
     with torch.cuda.device(device):

@@ -16,6 +16,9 @@ ROADMAP item.
       --requests 4 --prompt-len 32 --gen 16
 
 Without ``--device cpu`` it runs on the card and raises if there is none.
+The weights are drawn from seed 0 on the CPU whatever the device, so the
+card and the CPU serve the same model (any ``--reduce``: the card's
+attention kernels take every head_dim the reduction gives).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from .. import configs
 from ..device import resolve_device
 from ..models import LM
+from ..models.layers import tree_map
 
 
 def reduce_config(cfg, factor: int):
@@ -150,7 +154,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 projections stay f32
     cfg = reduce_config(configs.get_config(args.arch), args.reduce)
     lm = LM(cfg)
-    params = lm.init(torch.Generator(device=device).manual_seed(0), dtype=torch.float32)
+    # Drawn on the CPU and moved, so that every device serves the same weights.
+    params = tree_map(lambda t: t.to(device),
+                      lm.init(torch.Generator().manual_seed(0), dtype=torch.float32))
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, size=(args.requests, args.prompt_len))
 

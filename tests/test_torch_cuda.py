@@ -164,6 +164,11 @@ def test_flash_kernel_takes_strided_heads(cuda):
         (2, 4, 1, 100, 128, "bf16", "bf16"),
         (2, 4, 2, 64, 16, "f32", "f32"),
         (1, 4, 4, 300, 32, "f16", "f16"),
+        (8, 10, 1, 2048, 256, "f32", "bf16"),  # recurrentgemma-2b serving
+        (2, 48, 1, 100, 64, "f32", "bf16"),  # G = 48: four head blocks
+        (3, 6, 2, 77, 42, "f32", "bf16"),  # head_dim of --reduce 3: element path
+        (3, 6, 2, 77, 18, "f32", "f32"),
+        (2, 4, 2, 33, 85, "bf16", "f16"),
     ],
 )
 def test_decode_kernel_equals_plain(cuda, B, H, KVH, S, D, q_dt, c_dt):
@@ -184,15 +189,24 @@ def test_decode_kernel_equals_plain(cuda, B, H, KVH, S, D, q_dt, c_dt):
     assert got.dtype == q.dtype and got.shape == q.shape
     tol = _att_tol(q_dt) if q_dt != "f32" else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # The kernel keeps no state between calls: a second call agrees bit for bit.
+    torch.testing.assert_close(kernel_cuda.decode_attention_cuda(q, kc, vc, lengths), got,
+                               atol=0, rtol=0)
 
 
 def test_attention_kernels_refuse_bad_inputs(cuda):
     from repro_torch.kernels.decode_attention.kernel_cuda import decode_attention_cuda
     from repro_torch.kernels.flash_attention.kernel_cuda import flash_attention_cuda
 
-    x = torch.zeros((1, 2, 8, 48), device=cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    # head_dim 48 runs zero-padded to 64 (it was refused before).
+    x = torch.from_numpy(np.random.default_rng(48).normal(0, 1, (1, 2, 8, 48))
+                         .astype(np.float32)).to(cuda)
+    torch.testing.assert_close(flash_attention_cuda(x, x, x), attention_ref(x, x, x),
+                               atol=2e-5, rtol=2e-5)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_cuda(x, x, x)
+        flash_attention_cuda(*(torch.zeros((1, 2, 8, 320), device=cuda),) * 3)
     y = torch.zeros((1, 2, 8, 64), device=cuda)
     with pytest.raises(TypeError):
         flash_attention_cuda(y, y.half(), y)
@@ -207,18 +221,68 @@ def test_attention_kernels_refuse_bad_inputs(cuda):
 def test_flash_kernel_refuses_misaligned_views(cuda):
     """K/V tiles arrive in 16-byte cp.async copies: a view one element off
     a 16-byte boundary, or with a sequence stride that is not a multiple of
-    16 bytes, is refused before any launch."""
+    16 bytes, is copied to contiguous storage first (it was refused before)
+    and gives the plain version's result."""
     from repro_torch.kernels.flash_attention.kernel_cuda import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    x = torch.zeros((1, 2, 8, 64), device=cuda)
-    off = torch.zeros(2 * 8 * 64 + 1, device=cuda)[1:].view(1, 2, 8, 64)
+    rng = np.random.default_rng(16)
+    x = _randn(rng, (1, 2, 8, 64), cuda)
+    off = _randn(rng, (2 * 8 * 64 + 1,), cuda)[1:].view(1, 2, 8, 64)
     assert off.storage_offset() == 1
+    wide = _randn(rng, (1, 2, 8, 66), cuda)[..., :64]
     launches = flash_attention_cuda.launches
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        flash_attention_cuda(off, x, x)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        flash_attention_cuda(x, x, torch.zeros((1, 2, 8, 66), device=cuda)[..., :64])
-    assert flash_attention_cuda.launches == launches
+    for q, k, v in ((off, x, x), (x, x, wide), (off, off, wide)):
+        torch.testing.assert_close(flash_attention_cuda(q, k, v),
+                                   attention_ref(q.contiguous(), k.contiguous(),
+                                                 v.contiguous()), atol=2e-5, rtol=2e-5)
+    assert flash_attention_cuda.launches == launches + 3
+
+
+@pytest.mark.parametrize("D", [42, 18])
+def test_attention_kernels_at_any_head_dim(cuda, D):
+    """The head_dims that --reduce 3 and 7 give (42, 18): flash zero-pads to
+    the next compiled head_dim, decode takes its element path; both also on
+    a view that is off a 16-byte boundary."""
+    from repro_torch.kernels.decode_attention import kernel_cuda as dec_k
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel_cuda as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    rng = np.random.default_rng(D)
+    B, H, KVH, S = 2, 6, 2, 70
+    q, k, v = (_randn(rng, shape, cuda) for shape in ((B, H, S, D), (B, KVH, S, D),
+                                                      (B, KVH, S, D)))
+    torch.testing.assert_close(fa_k.flash_attention_cuda(q, k, v), fa_ref.attention_ref(q, k, v),
+                               atol=2e-5, rtol=2e-5)
+    qs = _randn(rng, (B, S, H, D + 3), cuda)[..., 1:D + 1].transpose(1, 2)  # strided, off
+    torch.testing.assert_close(fa_k.flash_attention_cuda(qs, k, v, causal=False),
+                               fa_ref.attention_ref(qs.contiguous(), k, v, causal=False),
+                               atol=2e-5, rtol=2e-5)
+    lengths = torch.tensor([S, 31], dtype=torch.int32, device=cuda)
+    qd = _randn(rng, (B, H, D + 1), cuda)[..., 1:]  # strided q, off a 16-byte boundary
+    for dt in (torch.float32, torch.bfloat16):
+        n = B * KVH * S * D
+        kc, vc = (_randn(rng, (n + 1,), cuda, dt)[1:].view(B, KVH, S, D) for _ in range(2))
+        torch.testing.assert_close(dec_k.decode_attention_cuda(qd, kc, vc, lengths),
+                                   dec_ref.decode_attention_ref(qd, kc, vc, lengths),
+                                   atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch,reduce", [("qwen3-0.6b", 3), ("recurrentgemma-2b", 6),
+                                         ("recurrentgemma-2b", 7)])
+def test_serve_main_odd_head_dim_card_equals_cpu(cuda, arch, reduce):
+    """--reduce 3 gives qwen3-0.6b head_dim 42, 6 and 7 give recurrentgemma-2b
+    42 and 36, which the card's attention path refused before: the card now
+    serves them, with the CPU's tokens. (recurrentgemma-2b at --reduce 3 and
+    5 has an odd head_dim, 85 and 51, which rope splits unevenly on every
+    device, in the reference too.)"""
+    from repro_torch.launch import serve
+
+    args = ["--arch", arch, "--reduce", str(reduce), "--requests", "2", "--prompt-len", "24",
+            "--gen", "6"]
+    card = serve.main(args + ["--device", "cuda"])
+    np.testing.assert_array_equal(card, serve.main(args + ["--device", "cpu"]))
 
 
 def test_small_serve_card_equals_cpu(cuda):
