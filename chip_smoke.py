@@ -10,10 +10,10 @@ exits non-zero; nothing is caught):
               nvidia-smi gives it), torch and CUDA versions.
 2. build    - nvcc builds every kernel source of the port at once
               (sm_90a), seconds taken and ptxas' register and spill lines
-              per source. flash_attention.cu and decode_attention.cu are
-              rebuilt on every run, so their ptxas reports are always read;
-              fails if any instance of either spills (or a report is
-              missing).
+              per source. flash_attention.cu, decode_attention.cu and
+              rwkv6_scan.cu are rebuilt on every run, so their ptxas
+              reports are always read; fails if any instance of any of them
+              spills (or a report is missing).
 3. kernels  - each kernel against its plain PyTorch version on the card at
               the main path's shapes (exact equality required: tolerance
               0, index mismatches 0; boundary latencies and bid rows with
@@ -75,8 +75,12 @@ exits non-zero; nothing is caught):
               versions on the card: the RG-LRU at recurrentgemma-2b's
               prefill shape (8, 2048, 2560) f32 and at a ragged one with a
               given state; RWKV-6 at rwkv6-7b's prefill shape (8, 64, 1024,
-              64) f32 and at T = 1 with the state given and updated in place
-              (its decode step); tolerance 1e-5 (RG-LRU) and 1e-4 (RWKV-6)
+              64) f32, at T = 1 with the state given and updated in place
+              (its decode step), at a ragged (3, 64, 1000, 64) with a given
+              state, and at the prefill shape with the model's decays (w =
+              exp(-exp(raw)), raw ~ N(0, 2)) and with r, k, v, w laid out
+              as the rwkv block passes them (heads split out of (B, T, H N)
+              projections); tolerance 1e-5 (RG-LRU) and 1e-4 (RWKV-6)
               abs/rel, as tests/test_kernels_scans.py. Flash attention at
               recurrentgemma-2b's prefill, (8, 10 / 1, 2048, 256) f32 causal,
               and decode attention at its decode, G = 10, head_dim 256, f32
@@ -120,6 +124,7 @@ no network, and exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -184,7 +189,7 @@ KERNEL_INFO = {
 }
 SCHEDULER_KERNELS = ("costmap", "auction_bid")
 # Sources rebuilt on every run whose ptxas reports must show no spill.
-SPILL_GATED = ("flash_attention.cu", "decode_attention.cu")
+SPILL_GATED = ("flash_attention.cu", "decode_attention.cu", "rwkv6_scan.cu")
 DECODE_KERNEL = ("decode_attention_kernel",)
 L2_FLUSH_BYTES = 128 * 2**20  # more than the H100's 50 MB L2
 # A small shape at a head_dim no kernel is compiled for (qwen3-0.6b's at
@@ -210,9 +215,13 @@ RECURRENT_PARITY_PROMPT = {"recurrentgemma-2b": 160, "rwkv6-7b": 64}
 SCAN_TOL = {"rglru_scan": 1e-5, "rwkv6_scan": 1e-4}
 RGLRU_SHAPES = ((8, 2048, 2560), (3, 1000, 2500))  # (B, T, D): prefill, ragged
 RWKV_SHAPE = (8, 64, 1024, 64)  # (B, H, T, N), prefill; decode at T = 1
+RWKV_RAGGED = (3, 64, 1000, 64)  # T a multiple of neither the chunk nor the ring
 # Operations per element or per state entry, counted from the kernels.
 RGLRU_OPS = 8  # 2*la, expm1, negate, sqrt, exp, a*h, mult*gx, add
-RWKV_OPS = 7  # k*v, u*kv, S+, *r, o+, w*S, +kv
+# RWKV-6 needs 5 per state entry and step: an FMA r*S into o (2), k*v (1)
+# and an FMA w*S + kv (2); the bonus sum_i r_i u_i k_i v_j factors out as
+# v_j * c_t, one scalar per step and head.
+RWKV_OPS = 5
 NO_SCAN_LIBRARY = (
     "no single PyTorch call computes either recurrence (a sequential scan "
     "whose decay depends on the data)"
@@ -913,19 +922,37 @@ def phase_recurrent_kernels() -> dict:
         del la, gx, h0
 
     B, H, T, N = RWKV_SHAPE
-    for t_len, with_s0 in ((T, False), (1, True)):
-        r, k, v = (randn((B, H, t_len, N)) for _ in range(3))
-        w = uniform(0.2, 0.999, (B, H, t_len, N))  # as exp(-exp(x)) gives
+    # (shape, s0 given, state updated in place, decays, r k v w laid out as
+    # the rwkv block passes them: heads split out of (B, T, H N) projections)
+    rows = ((RWKV_SHAPE, False, False, "uniform", False),
+            ((B, H, 1, N), True, True, "uniform", False),
+            (RWKV_RAGGED, True, False, "uniform", False),
+            (RWKV_SHAPE, False, False, "model", False),
+            (RWKV_SHAPE, False, False, "uniform", True))
+    for (B, H, t_len, N), given, in_place, decay, heads in rows:
+        def operand(scale=1.0):
+            if heads:
+                return randn((B, t_len, H, N), scale).transpose(1, 2)
+            return randn((B, H, t_len, N), scale)
+
+        r, k, v = (operand() for _ in range(3))
+        if decay == "model":  # w = exp(-exp(raw)): down to 0 and up to ~1
+            w = torch.exp(-torch.exp(operand(2.0)))
+        else:
+            w = uniform(0.2, 0.999, (B, H, t_len, N))  # as exp(-exp(x)) gives
+            if heads:
+                w = w.transpose(1, 2).contiguous().transpose(1, 2)
         u = randn((H, N), 0.5)
-        s0 = randn((B, H, N, N), 0.1) if with_s0 else None
-        b_ms, b_by = rwkv6_bound(B, H, t_len, N, with_s0=with_s0)
-        if with_s0:  # decode: the state read and written in place
+        s0 = randn((B, H, N, N), 0.1) if given else None
+        b_ms, b_by = rwkv6_bound(B, H, t_len, N, with_s0=given)
+        if in_place:  # decode: the state read and written in place
             state = s0.clone()
             call = lambda: rk_k.rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state)  # noqa: E731
         else:
-            call = lambda: rk_k.rwkv6_scan_cuda(r, k, v, w, u)  # noqa: E731
+            call = lambda: rk_k.rwkv6_scan_cuda(r, k, v, w, u, s0)  # noqa: E731
         out["rwkv6_scan"].append({
-            "shape": [B, H, t_len, N], "s0": with_s0, "in_place": with_s0,
+            "shape": [B, H, t_len, N], "s0": given, "in_place": in_place,
+            "decay": decay, "layout": "heads of a projection" if heads else "contiguous",
             **check_rwkv6(r, k, v, w, u, s0),
             "kernel_ms": time_ms(call), "device_ms": device_ms(call, ("rwkv6_scan_kernel",)),
             "plain_ms": time_ms(lambda: rk_ref.rwkv6_scan_ref(r, k, v, w, u, s0),
@@ -1138,12 +1165,26 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
     return info
 
 
+def _kernel_calls(prof) -> dict:
+    """{port kernel: {"device_ms_per_call", "calls"}} of the serving path's
+    CUDA kernels in a torch.profiler trace."""
+    got = {}
+    for evt in prof.key_averages():
+        for name in SERVE_KERNELS:
+            dev = getattr(evt, "device_time_total", 0.0) or 0.0
+            if f"{name}_kernel" in evt.key and dev > 0:
+                ms, calls = got.get(name, (0.0, 0))
+                got[name] = (ms + dev / 1e3, calls + evt.count)
+    return {k: {"device_ms_per_call": ms / calls, "calls": calls} for k, (ms, calls) in got.items()}
+
+
 def decode_profile(lm, params, prompts, gen: int, steps: int = 4) -> dict:
     """Where a decode step's time goes: a torch.profiler trace (CPU and
     CUDA) of ``steps`` decode steps after a fresh prefill of the same
     prompts. Host wall per step against the card's busy time per step
     (sum of kernel times; kernels do not overlap on one stream), and the
-    kernels with the most device time."""
+    kernels with the most device time. On the card the prefill is traced
+    too (CUDA only): the port's kernels' device ms per call in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1151,7 +1192,12 @@ def decode_profile(lm, params, prompts, gen: int, steps: int = 4) -> dict:
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     tokens = torch.as_tensor(prompts, dtype=torch.long, device=device)
-    logits, cache, lengths = lm.prefill(params, {"tokens": tokens}, s_max=prompts.shape[1] + gen)
+    pre = profile(activities=[ProfilerActivity.CUDA]) if on_card else contextlib.nullcontext()
+    with pre:
+        logits, cache, lengths = lm.prefill(params, {"tokens": tokens},
+                                            s_max=prompts.shape[1] + gen)
+        sync()
+    prefill_kernels = _kernel_calls(pre) if on_card else None
     tok = logits.argmax(-1)[:, None]
     sync()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
@@ -1184,6 +1230,8 @@ def decode_profile(lm, params, prompts, gen: int, steps: int = 4) -> dict:
         "kernels_per_step": launches / steps,
         "decode_attention_device_ms_per_call": dec_ms / dec_calls if dec_calls else None,
         "decode_attention_calls_per_step": dec_calls / steps,
+        "kernels_device_ms_per_call": _kernel_calls(prof) if on_card else None,
+        "prefill_kernels_device_ms_per_call": prefill_kernels,
         "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
         "top_host_ops_ms_calls_per_step": [[k[:60], *v] for k, v in top_host],
     }

@@ -6,8 +6,12 @@ its inputs (r, k, v of one dtype and w float32, each (B, H, T, N) and
 possibly a strided view, such as the heads split out of a projection, with
 a contiguous last dimension; u (H, N) and s0 (B, H, N, N) contiguous
 float32), allocates the contiguous (B, H, T, N) output in r's dtype,
-launches on the current stream and raises if the launch was refused. Any T,
-1 included: the reference kernel's ``T % block_t`` assertion is not copied.
+launches on the current stream and raises if the launch was refused. The
+launch refuses a view whose pointer or batch, head or time stride is not
+a multiple of 16 bytes (the kernel's copies need them) with
+cudaErrorMisalignedAddress before anything runs; the wrapper then copies
+such views and launches again. Any T, 1 included: the
+reference kernel's ``T % block_t`` assertion is not copied.
 
 The final state goes to ``state_out`` when it is given (a contiguous
 (B, H, N, N) float32 tensor, which may be ``s0`` itself: the kernel reads
@@ -24,9 +28,11 @@ from typing import Optional
 import torch
 
 from .. import build
+from ..flash_attention.kernel_cuda import aligned
 
 SOURCE = "rwkv6_scan.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MISALIGNED = 716  # cudaErrorMisalignedAddress: a view the copies cannot read as it is
 HEAD_DIMS = (16, 32, 64)
 
 
@@ -87,15 +93,22 @@ def rwkv6_scan_cuda(
     else:
         _check_state(state_out, "state_out", (B, H, N, N), device)
     out = torch.empty((B, H, T, N), dtype=r.dtype, device=device)
-    strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (r, k, v, w) for i in range(3)])
     lib = build.load(SOURCE, _bind)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.rwkv6_scan_launch(
+
+    def launch(r, k, v, w):
+        strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (r, k, v, w) for i in range(3)])
+        return lib.rwkv6_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             None if s0 is None else s0.data_ptr(), out.data_ptr(), state_out.data_ptr(),
             DTYPES[r.dtype], B, H, T, N, strides, stream,
         )
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = launch(r, k, v, w)
+        if rc == MISALIGNED:  # checked in the launch, off the common path
+            rc = launch(*(t if aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                          for t in (r, k, v, w)))
     if rc != 0:
         raise RuntimeError(
             f"rwkv6_scan launch failed: {lib.rwkv6_scan_error_string(rc).decode()} ({rc})"

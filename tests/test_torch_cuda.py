@@ -344,6 +344,16 @@ def test_rglru_kernel_equals_plain(cuda, B, T, D, dt, with_h0):
         (2, 4, 1, 64, "f32"),  # decode
         (1, 2, 200, 16, "f32"),
         (2, 16, 64, 32, "bf16"),  # rwkv6-7b reduced 8x: 32-wide heads
+        # T a multiple of neither the chunk (8 steps) nor the ring (4 chunks),
+        # at each head size's tile
+        (2, 3, 33, 16, "f32"),
+        (1, 4, 9, 32, "f32"),
+        (3, 2, 1000, 64, "f32"),
+        (2, 2, 7, 64, "f32"),
+        (2, 2, 23, 16, "bf16"),
+        (1, 3, 45, 32, "f16"),
+        (1, 2, 17, 64, "bf16"),
+        (2, 2, 1, 16, "f32"),
     ],
 )
 def test_rwkv6_kernel_equals_plain(cuda, B, H, T, N, dt):
@@ -379,6 +389,42 @@ def test_rwkv6_kernel_takes_strided_heads(cuda):
     u = _randn(rng, (H, N), cuda)
     got_o, got_s = kernel_cuda.rwkv6_scan_cuda(r, k, v, w, u)
     want_o, want_s = ref.rwkv6_scan_ref(r, k, v, w, u)
+    torch.testing.assert_close(got_o, want_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+
+
+def test_rwkv6_kernel_takes_misaligned_views(cuda):
+    """Views whose pointer or time stride is not a multiple of 16 bytes (the
+    kernel's copies need both) are copied by the wrapper, not refused."""
+    from repro_torch.kernels.rwkv6_scan import kernel_cuda, ref
+
+    rng = np.random.default_rng(5)
+    B, H, T, N = 2, 3, 21, 32
+    big = [_randn(rng, (B, H, T, N + 1), cuda) for _ in range(4)]
+    r, k, v = (x[..., 1:] for x in big[:3])  # pointer 4 bytes off, time stride N + 1
+    w = torch.sigmoid(big[3][..., :N])
+    u = _randn(rng, (H, N), cuda)
+    got_o, got_s = kernel_cuda.rwkv6_scan_cuda(r, k, v, w, u)
+    want_o, want_s = ref.rwkv6_scan_ref(r, k, v, w, u)
+    torch.testing.assert_close(got_o, want_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+
+
+def test_rwkv6_kernel_takes_mixed_layouts(cuda):
+    """Each operand's tensor map follows its own strides: r and w contiguous,
+    k and v heads split out of a (B, T, H N) projection, T a multiple of
+    neither the chunk nor the ring."""
+    from repro_torch.kernels.rwkv6_scan import kernel_cuda, ref
+
+    rng = np.random.default_rng(6)
+    B, S, H, N = 3, 45, 5, 64
+    r = _randn(rng, (B, H, S, N), cuda)
+    k, v = (_randn(rng, (B, S, H, N), cuda).transpose(1, 2) for _ in range(2))
+    w = torch.from_numpy(rng.uniform(0.2, 0.99, (B, H, S, N)).astype(np.float32)).to(cuda)
+    u = _randn(rng, (H, N), cuda)
+    s0 = _randn(rng, (B, H, N, N), cuda) * 0.1
+    got_o, got_s = kernel_cuda.rwkv6_scan_cuda(r, k, v, w, u, s0)
+    want_o, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
     torch.testing.assert_close(got_o, want_o, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
 
