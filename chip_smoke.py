@@ -10,10 +10,10 @@ exits non-zero; nothing is caught):
               nvidia-smi gives it), torch and CUDA versions.
 2. build    - nvcc builds every kernel source of the port at once
               (sm_90a), seconds taken and ptxas' register and spill lines
-              per source. flash_attention.cu, decode_attention.cu and
-              rwkv6_scan.cu are rebuilt on every run, so their ptxas
-              reports are always read; fails if any instance of any of them
-              spills (or a report is missing).
+              per source. flash_attention.cu, decode_attention.cu,
+              rwkv6_scan.cu and rglru_scan.cu are rebuilt on every run, so
+              their ptxas reports are always read; fails if any instance of
+              any of them spills (or a report is missing).
 3. kernels  - each kernel against its plain PyTorch version on the card at
               the main path's shapes (exact equality required: tolerance
               0, index mismatches 0; boundary latencies and bid rows with
@@ -74,7 +74,8 @@ exits non-zero; nothing is caught):
 10. recurrent_kernels - rglru_scan and rwkv6_scan against their plain
               versions on the card: the RG-LRU at recurrentgemma-2b's
               prefill shape (8, 2048, 2560) f32 and at a ragged one with a
-              given state; RWKV-6 at rwkv6-7b's prefill shape (8, 64, 1024,
+              given state, each row with bit_equal (states and final state
+              equal to the plain version's bit for bit); RWKV-6 at rwkv6-7b's prefill shape (8, 64, 1024,
               64) f32, at T = 1 with the state given and updated in place
               (its decode step), at a ragged (3, 64, 1000, 64) with a given
               state, and at the prefill shape with the model's decays (w =
@@ -189,7 +190,7 @@ KERNEL_INFO = {
 }
 SCHEDULER_KERNELS = ("costmap", "auction_bid")
 # Sources rebuilt on every run whose ptxas reports must show no spill.
-SPILL_GATED = ("flash_attention.cu", "decode_attention.cu", "rwkv6_scan.cu")
+SPILL_GATED = ("flash_attention.cu", "decode_attention.cu", "rwkv6_scan.cu", "rglru_scan.cu")
 DECODE_KERNEL = ("decode_attention_kernel",)
 L2_FLUSH_BYTES = 128 * 2**20  # more than the H100's 50 MB L2
 # A small shape at a head_dim no kernel is compiled for (qwen3-0.6b's at
@@ -850,6 +851,10 @@ def rwkv6_bound(B, H, T, N, dt: str = "f32", with_s0: bool = False):
 
 
 def check_rglru(la, gx, h0=None) -> dict:
+    """The kernel against its plain version: within the tolerance, and
+    whether states and final state are equal bit for bit (reported)."""
+    import torch
+
     from repro_torch.kernels.rglru_scan import kernel_cuda, ref
 
     got, want = kernel_cuda.rglru_scan_cuda(la, gx, h0), ref.rglru_scan_ref(la, gx, h0)
@@ -857,6 +862,7 @@ def check_rglru(la, gx, h0=None) -> dict:
     out = _agree("rglru_scan (states)", got[0], want[0], tol)
     out["max_abs_err"] = max(out["max_abs_err"],
                              _agree("rglru_scan (final)", got[1], want[1], tol)["max_abs_err"])
+    out["bit_equal"] = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
     return out
 
 

@@ -6,7 +6,9 @@ seconds). Libraries land in ``build/repro_torch/`` at the repository root
 (listed in ``.gitignore``), named by a digest of the source and the flags,
 so an edited source never loads a stale library. Nothing builds at import
 time: the first launch builds what it needs, and `build_all` builds several
-sources at once (one nvcc process each, started together).
+sources at once (one nvcc process each, started together); `build_copies`
+builds edited copies of them the same way (the tools' tile sweeps and
+probed kernels).
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -104,3 +107,43 @@ def load(source: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
         bind(lib)
         _LIBS[source] = lib
     return lib
+
+
+def build_copies(texts: Dict[str, str], subdir: str) -> Dict[str, Tuple[Path, str]]:
+    """Compile edited copies of kernel sources (a tile sweep's variants, a
+    probed kernel), every nvcc process at once with the port's flags, into
+    ``build/repro_torch/<subdir>/<name>.so``.
+
+    Returns {name: (library path, compiler log)}. Raises on a failed build.
+    """
+    out_dir = BUILD_DIR / subdir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        cu, lib = out_dir / f"{name}.cu", out_dir / f"{name}.so"
+        cu.write_text(text)
+        procs[name] = (lib, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        built[name] = (lib, log)
+    return built
+
+
+def ptxas_report(log: str, entry: str) -> dict:
+    """Registers and spill bytes that ptxas reports in ``log`` for the
+    kernel instance whose mangled name contains ``entry``."""
+    out, current = {}, False
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            current = entry in m.group(1)
+        elif current and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            out["spill_stores"], out["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif current and (m := re.search(r"Used (\d+) registers", ln)):
+            out["registers"] = int(m.group(1))
+    return out

@@ -11,6 +11,9 @@ Marked ``cuda``; every test skips without a CUDA device. On the card:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import re
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -335,6 +338,62 @@ def test_rglru_kernel_equals_plain(cuda, B, T, D, dt, with_h0):
     tol = 1e-5 if dt == "f32" else 1e-2
     torch.testing.assert_close(got_o.float(), want_o.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(got_h, want_h, atol=1e-5, rtol=1e-5)
+
+
+def _rglru_chunk() -> int:
+    """The f32 tile's kChunk in csrc/rglru_scan.cu (steps per ring stage)."""
+    src = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/rglru_scan.cu"
+    return int(re.search(r"struct Tile<float> \{[^}]*kChunk = (\d+)", src.read_text()).group(1))
+
+
+@pytest.mark.parametrize(
+    "B,T_of,D,dt",
+    [
+        (2, "C-1", 100, "f32"),  # one ragged chunk
+        (2, "C+1", 100, "f32"),  # a chunk and one step
+        (3, "1000", 2500, "f32"),  # chip_smoke.py's ragged row
+        (2, "C+1", 33, "f16"),  # one ragged 64-channel group of 16-bit channels
+        (3, "1000", 33, "f16"),
+    ],
+)
+def test_rglru_kernel_chunk_edges(cuda, B, T_of, D, dt):
+    """T at the ring's chunk edges and D of no channel-group multiple, with
+    h0: within 1e-5 of the plain version (f32 final state; 1e-2 for 16-bit
+    states), and bit-equal in f32."""
+    from repro_torch.kernels.rglru_scan import kernel_cuda, ref
+
+    C = _rglru_chunk()
+    T = {"C-1": C - 1, "C+1": C + 1, "1000": 1000}[T_of]
+    rng = np.random.default_rng(B * 1000 + T + D)
+    la = torch.from_numpy(-rng.uniform(0.001, 2.0, (B, T, D)).astype(np.float32)).to(
+        cuda, _ATT_DTYPES[dt])
+    gx = _randn(rng, (B, T, D), cuda, _ATT_DTYPES[dt])
+    h0 = _randn(rng, (B, D), cuda) * 0.3
+    got_o, got_h = kernel_cuda.rglru_scan_cuda(la, gx, h0)
+    want_o, want_h = ref.rglru_scan_ref(la, gx, h0)
+    assert got_o.dtype == gx.dtype and got_h.dtype == torch.float32
+    tol = 1e-5 if dt == "f32" else 1e-2
+    torch.testing.assert_close(got_o.float(), want_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got_h, want_h, atol=1e-5, rtol=1e-5)
+    if dt == "f32":
+        assert torch.equal(got_o, want_o) and torch.equal(got_h, want_h)
+
+
+@pytest.mark.parametrize("B,T,D,with_h0", [(8, 2048, 2560, False), (2, 200, 100, True),
+                                           (1, 1, 33, True)])
+def test_rglru_kernel_bit_equal_in_f32(cuda, B, T, D, with_h0):
+    """The kernel computes a and the product with gx with the plain
+    version's functions, and the recurrence as a rounded product then a
+    rounded sum, so its f32 states equal the plain version's bit for bit."""
+    from repro_torch.kernels.rglru_scan import kernel_cuda, ref
+
+    rng = np.random.default_rng(B + T + D)
+    la = torch.from_numpy(-rng.uniform(0.001, 2.0, (B, T, D)).astype(np.float32)).to(cuda)
+    gx = _randn(rng, (B, T, D), cuda)
+    h0 = _randn(rng, (B, D), cuda) * 0.3 if with_h0 else None
+    got_o, got_h = kernel_cuda.rglru_scan_cuda(la, gx, h0)
+    want_o, want_h = ref.rglru_scan_ref(la, gx, h0)
+    assert torch.equal(got_o, want_o) and torch.equal(got_h, want_h)
 
 
 @pytest.mark.parametrize(

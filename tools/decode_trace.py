@@ -106,14 +106,9 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    out_dir = build.BUILD_DIR / "decode_trace"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cu, lib_path = out_dir / "decode_attention_trace.cu", out_dir / "decode_attention_trace.so"
-    cu.write_text(probed_source((build.CSRC / kernel_cuda.SOURCE).read_text()))
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+    probed = probed_source((build.CSRC / kernel_cuda.SOURCE).read_text())
+    lib_path, _ = build.build_copies({"decode_attention_trace": probed},
+                                     "decode_trace")["decode_attention_trace"]
     lib = ctypes.CDLL(str(lib_path))
     kernel_cuda._bind(lib)
     build._LIBS[kernel_cuda.SOURCE] = lib

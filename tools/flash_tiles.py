@@ -49,45 +49,13 @@ def smem_bytes(d: int, nw: int, bk: int) -> int:
     return ((16 * nw + 2 * bk) * (d + 8) + 2 * bk * (d + 4)) * 4
 
 
-def ptxas_f32(log: str, d: int) -> dict:
-    """Registers and spill bytes of the f32 instance at head_dim ``d``."""
-    out, current = {}, False
-    for ln in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
-        if m:
-            current = f"flash_attention_kernelIfLi{d}E" in m.group(1)
-        elif current and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
-            out["spill_stores"], out["spill_loads"] = int(m.group(1)), int(m.group(2))
-        elif current and (m := re.search(r"Used (\d+) registers", ln)):
-            out["registers"] = int(m.group(1))
-    return out
-
-
-def build_variants(source: str, variants: list) -> dict:
-    """{name: (library path, ptxas log)}, every nvcc started at once."""
-    from repro_torch.kernels import build
-
-    out_dir = build.BUILD_DIR / "flash_tiles"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, d, nw, bk, mb in variants:
-        text, n = re.subn(TILE.format(d=d),
-                          f"struct Tile<{d}> {{ static constexpr int NW = {nw}, BK = {bk}, "
-                          f"kMinBlocks = {mb}; }};", source)
-        assert n == 1, f"no Tile<{d}> entry in the source"
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        lib = out_dir / f"{name}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-        built[name] = (lib, log)
-    return built
+def variant_source(source: str, d: int, nw: int, bk: int, mb: int) -> str:
+    """``source`` with its `Tile<d>` entry replaced."""
+    text, n = re.subn(TILE.format(d=d),
+                      f"struct Tile<{d}> {{ static constexpr int NW = {nw}, BK = {bk}, "
+                      f"kMinBlocks = {mb}; }};", source)
+    assert n == 1, f"no Tile<{d}> entry in the source"
+    return text
 
 
 def events_ms(fn, calls: int) -> float:
@@ -124,7 +92,8 @@ def main() -> int:
         nw, bk, mb = map(int, re.search(TILE.format(d=d), source).groups())
         variants.append((f"d{d}_committed_nw{nw}_bk{bk}_mb{mb}", d, nw, bk, mb))
     variants += [(f"d{d}_nw{nw}_bk{bk}_mb{mb}", d, nw, bk, mb) for d, nw, bk, mb in VARIANTS]
-    built = build_variants(source, variants)
+    built = build.build_copies({name: variant_source(source, *tile)
+                                for name, *tile in variants}, "flash_tiles")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     all_ok = True
@@ -148,7 +117,7 @@ def main() -> int:
             all_ok &= ok
             rows.append({"variant": name, "shape": [B, H, KVH, S, d], "warps": nw,
                          "keys_per_stage": bk, "min_ctas_per_sm": mb,
-                         "smem_bytes": smem_bytes(d, nw, bk), **ptxas_f32(built[name][1], d),
+                         "smem_bytes": smem_bytes(d, nw, bk), **build.ptxas_report(built[name][1], f"flash_attention_kernelIfLi{d}E"),
                          "max_abs_err": float(diff.max()), "ok": ok, "ms": []})
             if ok:
                 fns[name] = call

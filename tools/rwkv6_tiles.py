@@ -53,49 +53,15 @@ def smem_bytes(warps: int, chunk: int, stages: int, n: int = 64) -> int:
     return stages * chunk * 4 * n * 4 + (2 * warps * chunk * n + 2 * chunk) * 4 + stages * 8
 
 
-def ptxas_f32(log: str) -> dict:
-    """Registers and spill bytes of the f32 instance at N = 64."""
-    out, current = {}, False
-    for ln in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
-        if m:
-            current = "rwkv6_scan_kernelIfLi64E" in m.group(1)
-        elif current and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
-            out["spill_stores"], out["spill_loads"] = int(m.group(1)), int(m.group(2))
-        elif current and (m := re.search(r"Used (\d+) registers", ln)):
-            out["registers"] = int(m.group(1))
-    return out
-
-
-def build_variants(source: str, variants: list) -> dict:
-    """{name: (library path, ptxas log)}, every nvcc started at once; a
-    variant is (name, tile) or (name, the text of another source)."""
-    from repro_torch.kernels import build
-
-    out_dir = build.BUILD_DIR / "rwkv6_tiles"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, tile in variants:
-        if isinstance(tile, str):
-            text = tile
-        else:
-            text, n = re.subn(TILE, "struct Tile<64> {{ static constexpr int KG = {}, "
-                              "kWarps = {}, kChunk = {}, kStages = {}, kMinBlocks = {}; }};"
-                              .format(*tile), source)
-            assert n == 1, "no Tile<64> entry in the source"
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        lib = out_dir / f"{name}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-        built[name] = (lib, log)
-    return built
+def variant_source(source: str, tile) -> str:
+    """``source`` with its `Tile<64>` entry replaced by ``tile``, or
+    ``tile`` itself when it is the text of another source."""
+    if isinstance(tile, str):
+        return tile
+    text, n = re.subn(TILE, "struct Tile<64> {{ static constexpr int KG = {}, kWarps = {}, "
+                      "kChunk = {}, kStages = {}, kMinBlocks = {}; }};".format(*tile), source)
+    assert n == 1, "no Tile<64> entry in the source"
+    return text
 
 
 def main() -> int:
@@ -123,7 +89,8 @@ def main() -> int:
     for spec in args.extra:
         name, path = spec.split("=", 1)
         variants.append((name, Path(path).read_text()))
-    built = build_variants(source, variants)
+    built = build.build_copies({name: variant_source(source, tile) for name, tile in variants},
+                               "rwkv6_tiles")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     all_ok = True
@@ -154,7 +121,7 @@ def main() -> int:
                 row.update(key_groups=kg, warps=warps, columns_per_lane=N * kg // 32,
                            keys_per_thread=N // (warps * kg), chunk=chunk, stages=stages,
                            min_ctas_per_sm=mb, smem_bytes=smem_bytes(warps, chunk, stages))
-            rows.append({**row, **ptxas_f32(built[name][1]), "max_abs_err": err, "ok": ok,
+            rows.append({**row, **build.ptxas_report(built[name][1], "rwkv6_scan_kernelIfLi64E"), "max_abs_err": err, "ok": ok,
                          "ms": []})
             if ok:
                 fns[name] = call
