@@ -11,16 +11,35 @@ exits non-zero; nothing is caught):
 2. build    - nvcc builds every kernel source of the port at once
               (sm_90a), seconds taken and ptxas' register and spill lines
               per source. flash_attention.cu, decode_attention.cu,
-              rwkv6_scan.cu and rglru_scan.cu are rebuilt on every run, so
-              their ptxas reports are always read; fails if any instance of
-              any of them spills (or a report is missing).
+              rwkv6_scan.cu, rglru_scan.cu and auction_phase.cu are rebuilt
+              on every run, so their ptxas reports are always read; fails if
+              any instance of any of them spills (or a report is missing).
 3. kernels  - each kernel against its plain PyTorch version on the card at
               the main path's shapes (exact equality required: tolerance
               0, index mismatches 0; boundary latencies and bid rows with
               planted ties across chunk boundaries), and times: kernel and
               plain version per call by CUDA events (median of 21 runs of 10
               calls, host overhead included), the kernels' own time on the
-              card from a torch.profiler trace, and the bound.
+              card from a torch.profiler trace, and the bound. The
+              persistent auction phase is held to the step-wise loop
+              (the host loop around the bid kernel) on the round phase's
+              full-width instance (1,024 tasks, 12,500 machines), on a
+              1,536-task round (the replay's largest bucket, 2,048 padded
+              rows), on an 8-task round of the same width and on a price war
+              (identical rows in exact mode): price, owner, assignment,
+              iterations and bidder rows bit-equal to the loop on the same
+              card tensors and to the loop on CPU copies (there the bid is
+              its plain PyTorch version, not auction_bid.cu); per solve the
+              kernel's ms (events) and device ms (profiler), the loop's ms on
+              the card, iterations, us per iteration and the bidder rows
+              summed over the iterations. The bound reads each row that
+              bids from memory once (the active rows; a re-read of a row
+              may hit the L2 and is not charged) and the slot tables once,
+              against the bid's BID_OPS operations on every bidder row at
+              the f32 rate. Beside it latency_ms: iterations x 2 grid
+              barriers, a barrier's cost measured in this run as half the
+              device time of an iteration of a price war at 64 machines on
+              the same full grid.
 4. round    - one full-width round (12,500 machines, 1,024 tasks): the
               cost build on the card against the numpy host reference,
               every field bit-equal.
@@ -29,10 +48,16 @@ exits non-zero; nothing is caught):
               and summary() equal.
 6. full     - the paper's §6 Google cluster, 12,500 machines, 90 s of the
               synthetic workload on the card: rounds, tasks, auction
-              iterations, kernel launches (both > 0, bid launches equal to
-              auction iterations), wall time, per-round algo_s, peak device
-              memory, and the avg_app_perf_area next to the random
-              baseline's on the same workload (paper Fig. 5).
+              iterations, kernel launches (costmap > 0, auction_phase once
+              per solve with tasks, auction_bid 0: the bid runs inside the
+              phase kernel), wall time, per-round algo_s (p50, p99, max),
+              the solver.auction and sim.build_state seconds, us per auction
+              iteration, the slowest solves (ms, tasks, padded tasks,
+              iterations), peak device memory, the card's busy share over
+              the slowest solve (run again: its median host wall time,
+              then its device time under torch.profiler), and the
+              avg_app_perf_area next to the random baseline's on the same
+              workload (paper Fig. 5).
 7. attention_kernels - flash_attention and decode_attention against their
               plain versions on the card at the qwen3-0.6b serving shapes,
               in the dtypes the serving path gives them (f32 prefill;
@@ -167,6 +192,12 @@ KERNEL_INFO = {
         "source": "src/repro_torch/csrc/auction_bid.cu",
         "replaces": "src/repro/kernels/auction_bid/kernel.py:71",
     },
+    "auction_phase": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/auction_phase.cu",
+        # the bid fused with the reference's while_loop (src/repro/core/auction.py:219)
+        "replaces": "src/repro/kernels/auction_bid/kernel.py:71",
+    },
     "flash_attention": {
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -188,9 +219,17 @@ KERNEL_INFO = {
         "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:66",
     },
 }
-SCHEDULER_KERNELS = ("costmap", "auction_bid")
+SCHEDULER_KERNELS = ("costmap", "auction_bid", "auction_phase")
+# Full-width auction phases: rounds of (tasks, jobs) at 12,500 machines, and
+# a price war: PRICE_WAR[0] tasks with identical rows in exact mode, of which
+# PRICE_WAR[1] machines are cheapest by one cost unit (one free slot each).
+# The barrier probe is the same war at PRICE_WAR[0] machines on the full grid.
+PHASE_ROUNDS = ((1024, 300), (1536, 450), (8, 3))
+PRICE_WAR = (64, 60)
+PHASE_MAX_ITERS = 500_000
 # Sources rebuilt on every run whose ptxas reports must show no spill.
-SPILL_GATED = ("flash_attention.cu", "decode_attention.cu", "rwkv6_scan.cu", "rglru_scan.cu")
+SPILL_GATED = ("flash_attention.cu", "decode_attention.cu", "rwkv6_scan.cu", "rglru_scan.cu",
+               "auction_phase.cu")
 DECODE_KERNEL = ("decode_attention_kernel",)
 L2_FLUSH_BYTES = 128 * 2**20  # more than the H100's 50 MB L2
 # A small shape at a head_dim no kernel is compiled for (qwen3-0.6b's at
@@ -228,8 +267,8 @@ NO_SCAN_LIBRARY = (
     "whose decay depends on the data)"
 )
 NO_LIBRARY = (
-    "no single PyTorch call computes it (torch.max has no runner-up, "
-    "torch.topk ignores the second slot price)"
+    "no single PyTorch call computes a scheduler kernel's function (torch.max has no "
+    "runner-up, torch.topk ignores the second slot price; none runs an auction)"
 )
 
 
@@ -243,14 +282,14 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(fn, reps: int = N_REPS, per_rep: int = N_PER_REP) -> float:
+def time_ms(fn, reps: int = N_REPS, per_rep: int = N_PER_REP, warmup: int = 3) -> float:
     """Per-launch time: CUDA events around ``per_rep`` back-to-back calls,
-    divided by ``per_rep``; the median of ``reps`` such runs, after a
-    warm-up. A call's host-side overhead shows where it exceeds the work on
-    the card (small shapes)."""
+    divided by ``per_rep``; the median of ``reps`` such runs, after
+    ``warmup`` calls. A call's host-side overhead shows where it exceeds the
+    work on the card (small shapes)."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -479,9 +518,150 @@ def phase_kernels() -> dict:
             raise AssertionError(f"auction_bid kernel disagrees with its plain version: {row}")
         out["auction_bid"].append(row)
 
+    probe = barrier_probe()
+    out["auction_phase"] = [
+        check_phase(label, args, probe["barrier_us"])
+        for label, args in [(f"round_{T}", phase_round_inputs(T, J)) for T, J in PHASE_ROUNDS]
+        + [("price_war", price_war_inputs(*PRICE_WAR))]
+    ]
     emit({"phase": "kernels", "tolerance": 0, "library_ms_null_because": NO_LIBRARY,
-          "kernels": out})
+          "barrier_probe": probe, "kernels": out})
     return out
+
+
+def phase_round_inputs(n_tasks: int, n_jobs: int, device="cuda", n_machines: int = 12_500):
+    """The auction phase's inputs (price0, values, value_u, job_col, active)
+    of a synthetic full-width round, built as the ``auction`` backend builds
+    them: the cost build, then `solve_transportation_device`'s preparation
+    (tie jitter 9, unscaled costs)."""
+    import torch
+
+    from repro_torch.core import auction, latency, perf_model, policy, topology
+
+    topo = topology.google_topology(n_machines)
+    plane = latency.LatencyPlane.synthesize(topo, 4, seed=SEED)
+    state = full_width_round_state(topo, plane, n_tasks, n_jobs, 2, SEED)
+    T, M, Tp = n_tasks, topo.n_machines, auction._bucket(n_tasks)
+    w_m, a, *_ = policy.device_round_costs(
+        state, topo, _policy(), perf_model.perf_lut_table().to(device),
+        n_pad_tasks=Tp, n_pad_jobs=auction._bucket(n_jobs),
+    )
+    job_col = np.full(Tp, M, np.int32)
+    job_col[:T] = M + state.task_job
+    active = torch.from_numpy(np.arange(Tp) < T).to(device)
+    vm, vu, price0, _ = auction.prepare_values_step(
+        w_m, a, auction._jitter_device(Tp, M, 9, str(torch.device(device))), active,
+        torch.from_numpy(state.free_slots.astype(np.int32)).to(device), 1,
+        topo.slots_per_machine,
+    )
+    return price0, vm, vu, torch.from_numpy(job_col).to(device), active
+
+
+def price_war_inputs(n_tasks: int, n_cheap: int, device="cuda", n_machines: int = 12_500,
+                     n_slots: int = 8):
+    """A price war: ``n_tasks`` tasks of one job with identical rows, in exact
+    mode (costs scaled by T + 1, no jitter); ``n_cheap`` machines cost 10,
+    the others 11, and every machine has one free slot. The tasks that find
+    no cheap slot raise the cheap slots' prices by eps-sized steps until the
+    next level pays as well."""
+    import torch
+
+    T, M = n_tasks, n_machines
+    cost = np.full(M, 11, np.int64)
+    cost[np.linspace(0, M - 1, n_cheap).astype(np.int64)] = 10
+    values = np.broadcast_to((-cost * (T + 1)).astype(np.float32), (T, M)).copy()
+    price0 = np.full((M, n_slots), np.float32(2.0**40), np.float32)
+    price0[:, 0] = 0.0
+    host = (price0, values, np.full(T, -1500 * (T + 1), np.float32), np.full(T, M, np.int32),
+            np.ones(T, bool))
+    return tuple(torch.from_numpy(x).to(device) for x in host)
+
+
+def phase_bound(args, bidder_rows: int):
+    """(bound_ms, bound_by) of a solve: each row that bids read once (every
+    active row bids in the first iteration; padded rows never do), the slot
+    prices read and price, owner and assignment written once, against
+    BID_OPS operations per element of every bidder row."""
+    price0, values, _, _, active = args
+    Tp, M = values.shape
+    n_bytes = (int(active.sum()) * M * 4 + Tp * (4 + 4 + 1 + 4)
+               + price0.numel() * (4 + 4 + 4))
+    return bound_ms(n_bytes, bidder_rows * M * BID_OPS)
+
+
+def barrier_probe() -> dict:
+    """A grid barrier's cost on the phase kernel's full grid: half the device
+    time of an iteration of a price war whose rows are PRICE_WAR[0] machines
+    wide (the work of an iteration is a few L2 round trips), launched on as
+    many CTAs as can be co-resident."""
+    from repro_torch.kernels.auction_phase import kernel_cuda as ph_k
+    from repro_torch.kernels.auction_phase import ref as ph_ref
+
+    n = PRICE_WAR[0]
+    args = price_war_inputs(n, PRICE_WAR[1], n_machines=n)
+    ctas = ph_k.max_ctas()
+    got = ph_k.auction_phase_cuda(*args, 1.0, PHASE_MAX_ITERS, ctas=ctas)
+    want = ph_ref.auction_phase_ref(*args, 1.0, PHASE_MAX_ITERS)
+    if got[3] != want[3] or not all(
+        bool((g == w).all()) for g, w in zip(got[:3], want[:3])
+    ):
+        raise AssertionError("auction_phase disagrees with the step-wise loop on the probe")
+    dev = device_ms(lambda: ph_k.auction_phase_cuda(*args, 1.0, PHASE_MAX_ITERS, ctas=ctas),
+                    ("auction_phase_kernel",))
+    if dev is None:
+        raise AssertionError("the profiler shows no device time for the barrier probe")
+    return {"shape": list(args[1].shape), "ctas": ctas, "iterations": got[3],
+            "device_ms": dev, "barrier_us": dev * 1e3 / got[3] / 2}
+
+
+def check_phase(label: str, args, barrier_us: float) -> dict:
+    """The persistent phase kernel against the step-wise loop on the same
+    card tensors and on CPU copies (the plain bid): price, owner, assigned,
+    iterations and bidder rows equal (raises otherwise); then its times
+    beside the loop's, the bound and the barriers' latency."""
+    import torch
+
+    from repro_torch.kernels.auction_phase import kernel_cuda as ph_k
+    from repro_torch.kernels.auction_phase import ref as ph_ref
+
+    got = ph_k.auction_phase_cuda(*args, 1.0, PHASE_MAX_ITERS, return_bidder_rows=True)
+    want = ph_ref.auction_phase_ref(*args, 1.0, PHASE_MAX_ITERS, return_bidder_rows=True)
+    cpu = ph_ref.auction_phase_ref(*(a.cpu() for a in args), 1.0, PHASE_MAX_ITERS,
+                                   return_bidder_rows=True)
+    torch.cuda.synchronize()
+    names = ("price", "owner", "assigned")
+    mismatches = {n: int((g != w).sum()) for n, g, w in zip(names, got[:3], want[:3])}
+    cpu_mismatches = {n: int((g.cpu() != c).sum()) for n, g, c in zip(names, got[:3], cpu[:3])}
+    diff = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got[:3], want[:3]))
+    iters, rows = got[3], got[4]
+    row = {"label": label, "shape": list(args[1].shape), "slots": int(args[0].shape[1]),
+           "max_abs_diff": diff, "mismatches": mismatches, "cpu_mismatches": cpu_mismatches,
+           "iterations": iters, "loop_iterations": want[3], "cpu_iterations": cpu[3],
+           "bidder_rows": rows, "loop_bidder_rows": want[4], "cpu_bidder_rows": cpu[4]}
+    if (diff or any(mismatches.values()) or any(cpu_mismatches.values())
+            or not iters == want[3] == cpu[3] or not rows == want[4] == cpu[4]):
+        raise AssertionError(f"auction_phase kernel disagrees with the step-wise loop: {row}")
+    b_ms, b_by = phase_bound(args, rows)
+
+    def call():
+        return ph_k.auction_phase_cuda(*args, 1.0, PHASE_MAX_ITERS)
+
+    def loop():
+        return ph_ref.auction_phase_ref(*args, 1.0, PHASE_MAX_ITERS)
+
+    long_war = iters > 1000  # the loop takes seconds a solve there
+    row.update(
+        kernel_ms=time_ms(call, **(dict(reps=5, per_rep=2) if long_war else {})),
+        device_ms=device_ms(call, ("auction_phase_kernel",)),
+        plain_ms=time_ms(loop, reps=1 if long_war else 3, per_rep=1, warmup=0 if long_war else 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        latency_ms=iters * 2 * barrier_us / 1e3,
+    )
+    row["us_per_iteration"] = row["kernel_ms"] * 1e3 / iters
+    row["device_us_per_iteration"] = (row["device_ms"] * 1e3 / iters
+                                      if row["device_ms"] is not None else None)
+    row["plain_us_per_iteration"] = row["plain_ms"] * 1e3 / iters
+    return row
 
 
 # --------------------------------------------------------------------- #
@@ -607,29 +787,105 @@ def phase_parity(device="cuda", n_machines: int = 1536, duration_s: int = 60) ->
     return info
 
 
+class _Solves:
+    """Wraps `auction.solve_transportation_device`: counts the solves that
+    have tasks and keeps the arguments of the slowest one (host clock; the
+    solve ends in a device-to-host read). Its cost tensors are kept as they
+    are (a round never writes them again), host arrays copied."""
+
+    def __init__(self, fn):
+        self.fn, self.n, self.slowest_s, self.slowest = fn, 0, -1.0, None
+        self.log = []  # (ms, tasks, padded tasks, iterations) of each solve with tasks
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        res = self.fn(*args, **kw)
+        dt = time.perf_counter() - t0
+        if args[2] > 0:  # n_tasks
+            self.n += 1
+            self.log.append((dt * 1e3, int(args[2]), int(args[0].shape[0]), res.iterations))
+            if dt > self.slowest_s:
+                self.slowest_s = dt
+                self.slowest = ([a.copy() if isinstance(a, np.ndarray) else a for a in args],
+                                dict(kw))
+        return res
+
+
+def solve_busy_share(args, kw, reps: int = 5) -> dict:
+    """One round's solve run again: its host wall time (median of ``reps``
+    runs, each ending synchronised), then once under torch.profiler (CPU and
+    CUDA) for the card's busy time (every device event: kernels, copies,
+    fills; they run on one stream), its share of the unprofiled wall time,
+    and the host operations that took the most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import auction
+
+    walls = []
+    for _ in range(reps + 1):  # the first run warms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = auction.solve_transportation_device(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls[1:]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        auction.solve_transportation_device(*args, **kw)
+        torch.cuda.synchronize()
+    busy_us, kernels, host = 0.0, {}, {}
+    for evt in prof.key_averages():
+        dev = getattr(evt, "device_time_total", 0.0) or 0.0
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            if dev > 0:
+                busy_us += dev
+                kernels[evt.key[:60]] = dev / 1e3
+        elif evt.self_cpu_time_total > 0:
+            host[evt.key[:60]] = (evt.self_cpu_time_total / 1e3, evt.count)
+    busy_ms = busy_us / 1e3
+    return {"tasks": int(args[2]), "iterations": res.iterations, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+            "device_ms_by_kernel": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6]),
+            "profiled_host_ms_calls": dict(sorted(host.items(), key=lambda kv: -kv[1][0])[:8])}
+
+
 def phase_full(device="cuda", n_machines: int = 12_500, duration_s: int = 90) -> dict:
     import torch
 
     from repro_torch import kernels
+    from repro_torch.core import auction
     from repro_torch.core.topology import google_topology
 
     topo = google_topology(n_machines)
     on_card = device == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    sim, m, wall, counters = replay(topo, duration_s, device)
-    launches = {k: kernels.launch_counts()[k] for k in SCHEDULER_KERNELS}
+    solves = _Solves(auction.solve_transportation_device)
+    auction.solve_transportation_device = solves
+    try:
+        kernels.reset_launch_counts()
+        sim, m, wall, counters = replay(topo, duration_s, device)
+        launches = {k: kernels.launch_counts()[k] for k in SCHEDULER_KERNELS}
+    finally:
+        auction.solve_transportation_device = solves.fn
     iters = int(counters.get("auction.iterations", 0))
     algo = np.asarray(m.algo_runtime_s, np.float64)
     if not (m.rounds > 0 and m.tasks_placed > 0 and np.isfinite(algo).all()):
         raise AssertionError("full-width replay produced no rounds or non-finite times")
     if (sim.free_slots < 0).any() or (sim.free_slots > topo.slots_per_machine).any():
         raise AssertionError("full-width replay broke slot accounting")
-    if on_card and (min(launches.values()) <= 0 or launches["auction_bid"] != iters):
-        raise AssertionError(f"kernel launches {launches} vs auction iterations {iters}")
+    # On the card every solve with tasks is one launch of the phase kernel,
+    # which runs the bid inside it: the bid kernel itself never launches.
+    if on_card and not (launches["costmap"] > 0 and solves.n > 0
+                        and launches["auction_phase"] == solves.n
+                        and launches["auction_bid"] == 0):
+        raise AssertionError(f"kernel launches {launches} vs {solves.n} solves with tasks")
+    busy = solve_busy_share(*solves.slowest) if on_card else None
+    slowest_solves = sorted(solves.log, reverse=True)[:8]
+    del solves
     _, rnd, rnd_wall, _ = replay(topo, duration_s, device, backend="random")
     summ = m.summary()
+    spans = counters["spans_s"]
     info = {
         "phase": "full",
         "machines": n_machines,
@@ -638,14 +894,19 @@ def phase_full(device="cuda", n_machines: int = 12_500, duration_s: int = 90) ->
         "tasks_placed": m.tasks_placed,
         "tasks_migrated": m.tasks_migrated,
         "auction_iterations": iters,
+        "solves_with_tasks": launches["auction_phase"] if on_card else None,
         "launches": launches,
         "wall_s": wall,
         "algo_s_p50": float(np.median(algo)),
         "algo_s_p99": float(np.percentile(algo, 99)),
         "algo_s_max": float(algo.max()),
         "algo_s_sum": float(algo.sum()),
-        "ms_per_auction_iteration": float(algo.sum()) * 1e3 / max(iters, 1),
-        "spans_s": counters["spans_s"],
+        "solver_auction_s": spans.get("solver.auction", 0.0),
+        "sim_build_state_s": spans.get("sim.build_state", 0.0),
+        "us_per_auction_iteration": spans.get("solver.auction", 0.0) * 1e6 / max(iters, 1),
+        "slowest_solves_ms_tasks_padded_iterations": slowest_solves,
+        "slowest_solve_profile": busy,
+        "spans_s": spans,
         "max_memory_allocated": int(torch.cuda.max_memory_allocated()) if on_card else None,
         "avg_app_perf_area": summ["avg_app_perf_area"],
         "random_avg_app_perf_area": rnd.summary()["avg_app_perf_area"],
@@ -1405,7 +1666,8 @@ def kernels_line(kern: dict, full: dict, att: dict, served: dict, rec: dict,
     entries = []
     for name, rows in kern.items():
         main = next(r for r in rows if tuple(r["shape"]) == MAIN_SHAPE)
-        entries.append({**_entry(name, main, full["launches"][name]), "shapes": rows})
+        entries.append({**_entry(name, main, full["launches"][name]), "shapes": rows,
+                        "library_ms_null_because": NO_LIBRARY})
     gemma = rec_served["recurrentgemma-2b"]
     for name, rows in att.items():
         # The dtypes the serving path uses; recurrentgemma-2b's shape after.

@@ -4,13 +4,14 @@ A port of the JAX package `repro` (which stays the reference): the same
 modules under the same names, checked against it on the same inputs by
 ``tests/test_torch_*.py``. Host modules stay numpy; the scheduling round
 (costmap, rack reduce, thresholds, auction) runs as torch tensor code on an
-explicit ``device``, with the two hot spots as CUDA C++ kernels built at
-first use (`repro_torch.kernels`).
+explicit ``device``, with its hot spots as CUDA C++ kernels built at first
+use (`repro_torch.kernels`).
 
 Layout:
   core/         topology, perf_model, latency, workload, policy, auction,
                 scheduler_backend, engine, metrics, simulator
-  kernels/      costmap, auction_bid: kernel wrapper + plain version + dispatch
+  kernels/      costmap, auction_bid, auction_phase, attention, scans: kernel
+                wrapper + plain version + dispatch
   csrc/         the CUDA C++ sources, compiled for sm_90a by nvcc
   obs/          telemetry spans and counters
   distributed/  straggler detection

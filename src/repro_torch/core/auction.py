@@ -9,21 +9,13 @@ may be the same machine's second-cheapest slot. A single forward phase
 from zero prices with eps = 1 on integer-valued float32 (scaled values
 < 2^24) gives bit-identical results to the reference.
 
-Each Jacobi iteration of `auction_phase_step`:
-  1. `bid_top2` over the (T, M) value matrix (the CUDA kernel on the card),
-     merged with the task's own unscheduled offer;
-  2. conflict resolution, max bid per machine with ties to the lowest task
-     id, by one of two bit-identical strategies chosen by shape as in the
-     reference: a (T, T) dominance table when T*T <= 4*M, else a segment
-     max/min over machines (`scatter_reduce`);
-  3. slot price / owner / assignment updates.
-
-The reference's ``jax.lax.while_loop`` is a host loop here: it tests "any
-active task unassigned and it < max_iters" once per iteration (one device
-sync) and counts iterations exactly as the reference does. The reference's
-out-of-bounds ``mode="drop"`` scatters become writes into a sink row (the
-working price/owner tables carry one extra row, never read) or a sink
-element of a (T+1,) mark buffer.
+The phase (the reference's `auction_phase_step`, a ``jax.lax.while_loop``
+of Jacobi iterations: bid, conflict resolution, updates) is the
+`auction_phase` op: on the card one persistent CUDA launch per solve
+(``csrc/auction_phase.cu``), on CPU tensors the step-wise loop of
+`repro_torch.kernels.auction_phase.ref`. Both solve paths below,
+host costs in (`solve_transportation`) and cost tensors already on the
+device (`solve_transportation_device`), go through it.
 """
 
 from __future__ import annotations
@@ -34,12 +26,12 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels.auction_bid import ops as bid_ops
+from repro_torch.kernels.auction_phase import ops as phase_ops
+from repro_torch.kernels.auction_phase.ref import PRICE_LOCK
 
 from .policy import INF_COST
 
 NEG_VALUE = float(-(2.0**40))  # value of a forbidden column
-PRICE_LOCK = float(2.0**40)  # price of a slot beyond a machine's capacity
 _F32_EXACT = 2**24  # |ints| exactly representable in float32
 
 
@@ -64,117 +56,6 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
-def auction_phase_step(
-    price,  # (M, S) f32 slot prices (scaled integer units)
-    values_m,  # (T, M) f32 scaled values (-cost), NEG_VALUE forbidden
-    value_u,  # (T,) f32 scaled value of the task's own unscheduled column
-    job_col,  # (T,) i32 column id of the task's unscheduled aggregator
-    active,  # (T,) bool real (non-padding) tasks
-    eps,  # f32 0-dim tensor
-    max_iters: int,
-):
-    """Auction phase: ``(price0, values, ...) -> (price, owner, assigned, iters)``.
-
-    All tensors on one device; ``iters`` is a Python int.
-    """
-    device = values_m.device
-    T, M = values_m.shape
-    S = price.shape[1]
-    m_ids = torch.arange(M, dtype=torch.int32, device=device)
-    m_long = m_ids.long()
-    t_ids = torch.arange(T, dtype=torch.int32, device=device)
-    slot_iota = torch.arange(S, device=device)[None, :]
-    lock = _f32(PRICE_LOCK, device)
-    no_bid = _f32(-1.0, device)
-    t_sink = torch.full((M,), T, dtype=torch.int32, device=device)
-
-    # Row M of the working tables is the sink for masked writes.
-    price = torch.cat([price, torch.zeros((1, S), dtype=torch.float32, device=device)])
-    owner = torch.full((M + 1, S), -1, dtype=torch.int32, device=device)
-    assigned = torch.where(active, -1, 0).to(torch.int32)
-
-    it = 0
-    while it < max_iters and bool(((assigned < 0) & active).any()):
-        unassigned = (assigned < 0) & active
-
-        # Per-machine cheapest and second-cheapest slot (first index on ties).
-        live = price[:M]
-        price1, slot1 = torch.min(live, dim=1)  # (M,)
-        price2 = torch.where(slot_iota == slot1[:, None], lock, live).amin(dim=1)
-
-        best_m, best_v, second_v = bid_ops.bid_top2(values_m, price1, price2)
-        bm = best_m.long()
-
-        # Merge the task's own unscheduled offer (price pinned at 0).
-        u_better = value_u > best_v
-        second_for_machine = torch.maximum(second_v, value_u)
-        bids_unsched = unassigned & u_better
-        bids_machine = unassigned & ~u_better
-
-        # Machine bid level: beat the runner-up offer by eps.
-        bid_level = price1[bm] + (best_v - second_for_machine) + eps
-        bids = torch.where(bids_machine, bid_level, no_bid)
-
-        evict_mark = torch.zeros(T + 1, dtype=torch.bool, device=device)
-        if T * T <= 4 * M:
-            # T-space: a (T, T) same-machine dominance table.
-            same_m = bm[:, None] == bm[None, :]
-            dominated = (bids[None, :] > bids[:, None]) | (
-                (bids[None, :] == bids[:, None]) & (t_ids[None, :] < t_ids[:, None])
-            )
-            loses = (same_m & dominated).any(dim=1)
-            winner = bids_machine & ~loses
-            win_slot_t = slot1[bm]
-            evicted_t = torch.where(winner, owner[bm, win_slot_t], -1)
-
-            # Per-machine winners are unique; losers write to the sink row.
-            win_m_t = torch.where(winner, bm, M)
-            price.index_put_((win_m_t, win_slot_t), bids)
-            owner.index_put_((win_m_t, win_slot_t), t_ids)
-
-            # Evictees are disjoint from winners; -1 goes to the sink T.
-            evict_mark[torch.where(evicted_t >= 0, evicted_t, T).long()] = True
-            assigned = torch.where(evict_mark[:T], -1, assigned)
-            assigned = torch.where(winner, best_m, assigned)
-            assigned = torch.where(bids_unsched, job_col, assigned)
-        else:
-            # M-space: two-pass segment reduction over machines. Empty
-            # segments keep -inf (jax's segment_max identity), so only
-            # machines that somebody bid on can have a winner.
-            win_bid = torch.full((M,), float("-inf"), device=device).scatter_reduce(
-                0, bm, bids, "amax", include_self=False
-            )
-            has_winner = win_bid >= 0
-            is_winner_cand = bids_machine & (bids == win_bid[bm])
-            win_task = t_sink.scatter_reduce(
-                0, bm, torch.where(is_winner_cand, t_ids, T), "amin", include_self=False
-            )
-            win_task = torch.where(has_winner, win_task, 0)
-            win_slot = slot1
-
-            evicted = torch.where(has_winner, owner[m_long, win_slot], -1)
-
-            win_m = torch.where(has_winner, m_long, M)
-            price.index_put_((win_m, win_slot), win_bid)
-            owner.index_put_((win_m, win_slot), win_task)
-
-            evict_mark[torch.where(evicted >= 0, evicted, T).long()] = True
-
-            # Winner marks (each task bids on one machine: no duplicates
-            # outside the sink).
-            win_tgt = torch.where(has_winner, win_task, T).long()
-            win_mark = torch.zeros(T + 1, dtype=torch.bool, device=device)
-            win_mark[win_tgt] = True
-            win_col = torch.zeros(T + 1, dtype=torch.int32, device=device)
-            win_col[win_tgt] = m_ids + 1
-
-            assigned = torch.where(evict_mark[:T], -1, assigned)
-            assigned = torch.where(win_mark[:T], win_col[:T] - 1, assigned)
-            assigned = torch.where(bids_unsched, job_col, assigned)
-        it += 1
-    return price[:M], owner[:M], assigned, it
-
-
 def solve_transportation(
     w: np.ndarray,  # (T, C) int costs, INF_COST = forbidden; C = M + J
     machine_capacity: np.ndarray,  # (M,) slots per machine
@@ -194,7 +75,7 @@ def solve_transportation(
     (T+1) so eps=1 pins the true optimum; `exact=False` (the scheduler
     default) runs on unscaled costs, suboptimal by <= 1 unit per task.
     `tie_jitter` > 0 adds the deterministic per-(task, machine) jitter of
-    `_jitter_matrix_np` to machine costs.
+    `_jitter_device` (hashed on the CPU) to machine costs.
     """
     from repro_torch.device import resolve_device
 
@@ -203,7 +84,7 @@ def solve_transportation(
     if tie_jitter > 0 and T > 0:
         M_ = n_machines
         w = w.copy()
-        jit = _jitter_matrix_np(T, M_, tie_jitter).astype(np.int64)
+        jit = _jitter_device(_bucket(T), M_, tie_jitter, "cpu")[:T].numpy().astype(np.int64)
         mcols = w[:, :M_]
         w[:, :M_] = np.where(mcols < int(INF_COST), mcols + jit, mcols)
     M = n_machines
@@ -251,9 +132,8 @@ def solve_transportation(
     def up(x):
         return torch.from_numpy(x).to(device)
 
-    price, _, assigned, iters = auction_phase_step(
-        up(price0), up(vm_p), up(vu_p), up(jobcol_p), up(active),
-        _f32(eps, device), max_iters_per_phase,
+    price, _, assigned, iters = phase_ops.auction_phase(
+        up(price0), up(vm_p), up(vu_p), up(jobcol_p), up(active), eps, max_iters_per_phase,
     )
     if iters >= max_iters_per_phase:
         raise RuntimeError(f"auction hit the iteration cap ({max_iters_per_phase})")
@@ -271,29 +151,47 @@ def solve_transportation(
     )
 
 
-# --- Round on a device: cost tensors in, assignment out ---------------------
+_M32 = (1 << 32) - 1
+_JITTER_ROWS = 256  # rows of the jitter matrix hashed at a time (int64 temporaries)
 
 
-def _jitter_matrix_np(n_rows: int, n_cols: int, tie_jitter: int) -> np.ndarray:
-    """Deterministic per-(task, machine) tie jitter in [0, tie_jitter).
-
-    The reference's hash, for both solve paths, so host and device rounds
-    place identically bit for bit.
-    """
-    tt = np.arange(n_rows, dtype=np.uint64)[:, None]
-    mm = np.arange(n_cols, dtype=np.uint64)[None, :]
-    h = tt * np.uint64(0x9E3779B97F4A7C15) + mm * np.uint64(0xBF58476D1CE4E5B9)
-    h ^= h >> np.uint64(29)
-    return (h % np.uint64(tie_jitter)).astype(np.int32)
+def _limbs_times(ids: torch.Tensor, k: int):
+    """(hi, lo) 32-bit halves of ``ids * k mod 2^64`` for 0 <= ids < 2^30:
+    every int64 intermediate stays below 2^63."""
+    lo = ids * (k & _M32)
+    hi = (ids * (k >> 32) + (lo >> 32)) & _M32
+    return hi, lo & _M32
 
 
 @functools.lru_cache(maxsize=8)
 def _jitter_device(n_rows: int, n_cols: int, tie_jitter: int, device: str) -> torch.Tensor:
-    """Jitter matrix on ``device``, cached per padded round shape: one
-    upload per bucket, not per round."""
+    """Deterministic per-(task, machine) tie jitter in [0, tie_jitter), int32,
+    computed on ``device`` and cached per padded round shape. The
+    reference's hash (``h = t * 0x9E3779B97F4A7C15 + m * 0xBF58476D1CE4E5B9``
+    mod 2^64, ``h ^= h >> 29``, ``h % tie_jitter``) runs on 32-bit halves held
+    in int64 (the logical shift and the unsigned remainder written out), so
+    host and device rounds place identically bit for bit; on the card a
+    bucket seen for the first time costs no host hashing and no upload of
+    the (n_rows, n_cols) matrix."""
+    out = torch.zeros((n_rows, n_cols), dtype=torch.int32, device=device)
     if tie_jitter <= 0:
-        return torch.zeros((n_rows, n_cols), dtype=torch.int32, device=device)
-    return torch.from_numpy(_jitter_matrix_np(n_rows, n_cols, tie_jitter)).to(device)
+        return out
+    cols = torch.arange(n_cols, dtype=torch.int64, device=device)
+    m_hi, m_lo = _limbs_times(cols, 0xBF58476D1CE4E5B9)
+    rows = torch.arange(n_rows, dtype=torch.int64, device=device)[:, None]
+    for r0 in range(0, n_rows, _JITTER_ROWS):
+        t_hi, t_lo = _limbs_times(rows[r0 : r0 + _JITTER_ROWS], 0x9E3779B97F4A7C15)
+        lo = t_lo + m_lo
+        hi = (t_hi + m_hi + (lo >> 32)) & _M32
+        lo = lo & _M32
+        # h ^= h >> 29, on the halves
+        lo, hi = lo ^ (((lo >> 29) | (hi << 3)) & _M32), hi ^ (hi >> 29)
+        # h % tie_jitter, h = hi * 2^32 + lo
+        out[r0 : r0 + _JITTER_ROWS] = (hi * ((1 << 32) % tie_jitter) + lo) % tie_jitter
+    return out
+
+
+# --- Round on a device: cost tensors in, assignment out ---------------------
 
 
 def prepare_values_step(
@@ -395,13 +293,13 @@ def solve_transportation_device(
         scale,
         S,
     )
-    price, _, assigned, iters = auction_phase_step(
+    price, _, assigned, iters = phase_ops.auction_phase(
         price0,
         vm,
         vu,
         torch.from_numpy(jobcol_p).to(device),
         active_dev,
-        _f32(eps, device),
+        eps,
         max_iters_per_phase,
     )
     if iters >= max_iters_per_phase:

@@ -17,8 +17,8 @@ Backends in this package:
 
 - `AuctionBackend` (``auction``) — the fused round on the device:
   `policy.device_round_costs` (task/job dims padded to power-of-two
-  buckets) into `auction.solve_transportation_device`; on the card both
-  kernels (costmap, auction_bid) run inside it. ``auction_host`` is the
+  buckets) into `auction.solve_transportation_device`; on the card the
+  costmap and auction_phase kernels run inside it. ``auction_host`` is the
   same solver fed by the numpy `dense_costs` reference.
 - `RandomBackend` / `LoadSpreadingBackend` (``random``/``load_spreading``)
   — the paper §6.1 heuristics.
@@ -289,7 +289,7 @@ class AuctionBackend(SchedulerBackend):
     ``fused=True`` (the default, name ``auction``) runs the whole round —
     costmap, rack reduce, thresholds, preemption discount, value scaling,
     auction — as torch tensor code on ``device``, padding the varying dims
-    to power-of-two buckets; on the card the costmap and auction_bid CUDA
+    to power-of-two buckets; on the card the costmap and auction_phase CUDA
     kernels carry it. ``fused=False`` (name ``auction_host``) is the numpy
     `dense_costs` + `solve_transportation` path, its phase also on
     ``device``. Both give bit-identical placements. (The reference calls

@@ -11,7 +11,7 @@ machine's tasks, straggler-triggered migration rounds).
 Task state is structure-of-arrays (`engine.TaskTable`); the host side is
 numpy, draw for draw the reference's streams. The scheduling round runs on
 ``SimConfig.device`` (default ``"cuda"``): on the card the ``auction``
-backend's round goes through the costmap and auction_bid CUDA kernels.
+backend's round goes through the costmap and auction_phase CUDA kernels.
 With ``fixed_algo_s`` set, `SimMetrics` are bit-identical to the
 reference's on the same workload and plane.
 

@@ -9,7 +9,12 @@ Each kernel package has:
   costmap      - fused latency -> LUT perf -> integer arc cost (Eq. 6);
                  replaces repro.kernels.costmap.kernel.costmap_pallas
   auction_bid  - per-row top-2 bid of the auction solver; replaces
-                 repro.kernels.auction_bid.kernel.bid_top2_pallas
+                 repro.kernels.auction_bid.kernel.bid_top2_pallas (the
+                 step-wise loop's bid; off the card's main path)
+  auction_phase - the auction's whole Jacobi phase, the bid fused with the
+                 loop, in one persistent cooperative launch per solve;
+                 replaces bid_top2_pallas with the reference's while_loop
+                 (repro.core.auction.auction_phase_step)
   flash_attention  - blocked causal GQA attention (LM prefill); replaces
                  repro.kernels.flash_attention.kernel.flash_attention_pallas
   decode_attention - one-token GQA attention against a KV cache (LM
@@ -26,6 +31,7 @@ Each kernel package has:
 """
 
 from .auction_bid.kernel_cuda import bid_top2_cuda
+from .auction_phase.kernel_cuda import auction_phase_cuda
 from .costmap.kernel_cuda import costmap_cuda
 from .decode_attention.kernel_cuda import decode_attention_cuda
 from .flash_attention.kernel_cuda import flash_attention_cuda
@@ -33,11 +39,12 @@ from .rglru_scan.kernel_cuda import rglru_scan_cuda
 from .rwkv6_scan.kernel_cuda import rwkv6_scan_cuda
 
 #: (name, wrapper, CUDA source) of every kernel of the port: the scheduling
-#: path's two, the LM serving path's attention kernels, then the recurrent
-#: blocks' scans.
+#: path's (the bid, then the phase that fuses it with the loop), the LM
+#: serving path's attention kernels, then the recurrent blocks' scans.
 KERNELS = (
     ("costmap", costmap_cuda, "costmap.cu"),
     ("auction_bid", bid_top2_cuda, "auction_bid.cu"),
+    ("auction_phase", auction_phase_cuda, "auction_phase.cu"),
     ("flash_attention", flash_attention_cuda, "flash_attention.cu"),
     ("decode_attention", decode_attention_cuda, "decode_attention.cu"),
     ("rglru_scan", rglru_scan_cuda, "rglru_scan.cu"),

@@ -99,8 +99,19 @@ def test_solves_match_reference(T, strategy, mode, seed):
 def test_jitter_matrix_matches_reference():
     for shape in ((8, 52), (33, 100)):
         assert np.array_equal(
-            t_auction._jitter_matrix_np(*shape, 9), r_auction._jitter_matrix_np(*shape, 9)
+            t_auction._jitter_device(*shape, 9, "cpu").numpy(),
+            r_auction._jitter_matrix_np(*shape, 9),
         )
     assert [t_auction._bucket(n) for n in (0, 1, 8, 9, 1000, 1025)] == [
         r_auction._bucket(n) for n in (0, 1, 8, 9, 1000, 1025)
     ]
+
+
+@pytest.mark.parametrize("tie_jitter", [9, 2, 7, 1000, 2**31 - 1])
+def test_device_jitter_matches_reference(tie_jitter):
+    """The jitter hashed on a device (32-bit halves in int64) gives the
+    reference's numpy uint64 bits, across several row chunks."""
+    for shape in ((8, 52), (600, 333)):
+        got = t_auction._jitter_device(*shape, tie_jitter, "cpu")
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), r_auction._jitter_matrix_np(*shape, tie_jitter))

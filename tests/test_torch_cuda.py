@@ -100,11 +100,170 @@ def test_small_replay_card_equals_cpu(cuda):
         )
         out[dev] = simulator.Simulator(wl, plane, cfg).run()
     counts = kernels.launch_counts()
-    assert counts["costmap"] > 0 and counts["auction_bid"] > 0
+    # The card's solves run the persistent phase kernel, never the bid alone.
+    assert counts["costmap"] > 0 and counts["auction_phase"] > 0
+    assert counts["auction_bid"] == 0
     a, b = out["cuda"], out["cpu"]
     for f in ("tasks_placed", "tasks_migrated", "rounds", "placement_latency_s",
               "response_time_s", "per_job_perf", "migrated_pct_per_round"):
         assert getattr(a, f) == getattr(b, f), f
+
+
+def _phase_instance(seed, T, Tp, M, S, *, levels=99, jitter=9, exact=False,
+                    identical=False, forbid=0.05):
+    """(price0, values, value_u, job_col, active) of an auction phase, numpy:
+    costs in multiples of 10 (plus tie jitter), forbidden columns, locked
+    slots, padding rows past T; exact mode scales by T + 1, identical rows
+    make a price war."""
+    rng = np.random.default_rng(seed)
+    cost = rng.integers(1, levels + 1, size=(T, M)).astype(np.int64) * 10
+    if identical:
+        cost[:] = cost[0]
+    if jitter:
+        cost += rng.integers(0, jitter, size=(T, M))
+    forbidden = rng.random((T, M)) < forbid
+    scale = T + 1 if exact else 1
+    values = np.full((Tp, M), -(2.0**40), np.float32)
+    values[:T] = np.where(forbidden, np.float32(-(2.0**40)), (-cost * scale).astype(np.float32))
+    value_u = np.zeros(Tp, np.float32)
+    value_u[:T] = (-rng.integers(400, 1500, size=T) * scale).astype(np.float32)
+    job_col = np.full(Tp, M, np.int32)
+    job_col[:T] = M + np.sort(rng.integers(0, 3, size=T))
+    capacity = rng.integers(0, S + 1, size=M)
+    price0 = np.where(np.arange(S)[None, :] >= capacity[:, None], np.float32(2.0**40),
+                      np.float32(0.0)).astype(np.float32)
+    return price0, values, value_u, job_col, np.arange(Tp) < T
+
+
+_PHASE_CASES = {
+    "round_8": dict(T=8, Tp=8, M=12_500, S=8),
+    "round_1024": dict(T=1000, Tp=1024, M=12_500, S=8, levels=20),
+    "round_2048": dict(T=1536, Tp=2048, M=12_500, S=8, levels=20),
+    "price_war_wide": dict(T=64, Tp=64, M=12_500, S=2, levels=1, jitter=0, exact=True,
+                           identical=True, forbid=0.0),
+    "price_war": dict(T=16, Tp=16, M=24, S=2, levels=1, jitter=0, exact=True,
+                      identical=True, forbid=0.0),
+    "m_space": dict(T=27, Tp=32, M=40, S=3),
+}
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("case", sorted(_PHASE_CASES))
+def test_auction_phase_kernel_equals_step_loop(cuda, case, seed):
+    """Bit for bit: price, owner, assigned, iterations and bidder rows,
+    against the step-wise loop on the same CUDA tensors (and on the CPU
+    where the loop is cheap there)."""
+    from repro_torch.kernels.auction_phase import kernel_cuda, ref
+
+    args = _phase_instance(seed, **_PHASE_CASES[case])
+    dev = [torch.from_numpy(x).to(cuda) for x in args]
+    got = kernel_cuda.auction_phase_cuda(*dev, 1.0, 500_000, return_bidder_rows=True)
+    want = ref.auction_phase_ref(*dev, 1.0, 500_000, return_bidder_rows=True)
+    assert got[3] == want[3] and got[4] == want[4] and got[3] >= 1
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if args[1].shape[0] <= 64:
+        cpu = ref.auction_phase_ref(*map(torch.from_numpy, args), 1.0, 500_000)
+        assert cpu[3] == got[3]
+        for g, c in zip(got[:3], cpu[:3]):
+            assert torch.equal(g.cpu(), c)
+
+
+def test_auction_phase_stops_at_the_cap(cuda):
+    from repro_torch.core import auction
+    from repro_torch.kernels.auction_phase import kernel_cuda, ref
+
+    args = [torch.from_numpy(x).to(cuda) for x in _phase_instance(1, **_PHASE_CASES["price_war"])]
+    assert kernel_cuda.auction_phase_cuda(*args, 1.0, 500_000)[3] > 3
+    got = kernel_cuda.auction_phase_cuda(*args, 1.0, 3)
+    want = ref.auction_phase_ref(*args, 1.0, 3)
+    assert got[3] == want[3] == 3 and bool((got[2] < 0).any())
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    # Host costs in: a price war among identical rows, card against CPU, and
+    # a cap below its iterations raises.
+    rng = np.random.default_rng(1)
+    T, M = 16, 24
+    w = np.zeros((T, M + 1), np.int64)
+    w[:, :M] = 10
+    w[:, M] = rng.integers(400, 1500, size=T)
+    cap = rng.integers(0, 3, size=M)
+    kw = dict(slots_per_machine=2, exact=True)
+    card = auction.solve_transportation(w, cap, M, np.full(T, M), device=cuda, **kw)
+    cpu = auction.solve_transportation(w, cap, M, np.full(T, M), device="cpu", **kw)
+    assert np.array_equal(card.assigned_col, cpu.assigned_col)
+    assert card.total_cost == cpu.total_cost and np.array_equal(card.prices, cpu.prices)
+    assert card.iterations == cpu.iterations > 3
+    with pytest.raises(RuntimeError, match="iteration cap"):
+        auction.solve_transportation(w, cap, M, np.full(T, M), device=cuda,
+                                     max_iters_per_phase=3, **kw)
+
+
+def test_solve_device_kernel_equals_step_loop(cuda, monkeypatch):
+    """`solve_transportation_device` gives the same AuctionResult through the
+    kernel and through the step-wise loop."""
+    from repro_torch import kernels
+    from repro_torch.core import auction, latency, perf_model, policy, topology
+    from repro_torch.kernels.auction_phase import ref
+
+    topo = topology.google_topology(1536)
+    plane = latency.LatencyPlane.synthesize(topo, 4, seed=1)
+    rng = np.random.default_rng(4)
+    T, J = 300, 40
+    roots = rng.integers(0, topo.n_machines, size=J)
+    state = policy.RoundState(
+        task_job=np.sort(rng.integers(0, J, size=T)), perf_idx=rng.integers(0, 4, size=T),
+        root_machine=roots, root_latency=plane.latency_rows(roots, 2),
+        wait_s=rng.uniform(0, 100, size=T).astype(np.float32),
+        run_s=np.zeros(T, np.float32), cur_machine=np.full(T, -1, np.int64),
+        free_slots=rng.integers(0, 3, size=topo.n_machines).astype(np.int32))
+    lut = perf_model.perf_lut_table().to(cuda)
+    w_m, a, *_ = policy.device_round_costs(state, topo, policy.PolicyParams(), lut,
+                                           n_pad_tasks=auction._bucket(T), n_pad_jobs=64)
+    results = {}
+    for route in ("kernel", "loop"):
+        if route == "loop":
+            monkeypatch.setattr(auction.phase_ops, "auction_phase", ref.auction_phase_ref)
+        kernels.reset_launch_counts()
+        results[route] = auction.solve_transportation_device(
+            w_m, a, T, state.free_slots, topo.n_machines, state.task_job,
+            slots_per_machine=topo.slots_per_machine, tie_jitter=9, exact=False)
+        assert kernels.launch_counts()["auction_phase"] == (route == "kernel")
+    k, lp = results["kernel"], results["loop"]
+    assert np.array_equal(k.assigned_col, lp.assigned_col)
+    assert k.total_cost == lp.total_cost and k.iterations == lp.iterations > 1
+    assert torch.equal(k.prices, lp.prices)
+
+
+def test_device_jitter_on_the_card(cuda):
+    from repro_torch.core import auction
+
+    for shape in ((8, 12_500), (2048, 12_500), (300, 7)):
+        got = auction._jitter_device(*shape, 9, str(cuda))
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), auction._jitter_device(*shape, 9, "cpu"))
+
+
+def test_auction_phase_refuses_bad_inputs(cuda):
+    from repro_torch.kernels.auction_phase import kernel_cuda
+
+    args = [torch.from_numpy(x).to(cuda) for x in _phase_instance(0, **_PHASE_CASES["m_space"])]
+    price0, values, value_u, job_col, active = args
+    with pytest.raises(TypeError):
+        kernel_cuda.auction_phase_cuda(price0, values.double(), value_u, job_col, active, 1.0, 9)
+    with pytest.raises(TypeError):
+        kernel_cuda.auction_phase_cuda(price0, values, value_u, job_col.long(), active, 1.0, 9)
+    with pytest.raises(ValueError, match="expected"):
+        kernel_cuda.auction_phase_cuda(price0, values, value_u.cpu(), job_col, active, 1.0, 9)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_cuda.auction_phase_cuda(price0, values.t().contiguous().t(), value_u, job_col,
+                                       active, 1.0, 9)
+    for eps in (0.0, -1.0, 1e-46):
+        with pytest.raises(ValueError, match="eps"):
+            kernel_cuda.auction_phase_cuda(*args, eps, 9)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel_cuda.auction_phase_cuda(*args, 1.0, 9, ctas=kernel_cuda.max_ctas() + 1)
+    assert kernel_cuda.auction_phase_cuda(*args, 1.0, 9)[3] > 0  # the card is still usable
 
 
 _ATT_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}

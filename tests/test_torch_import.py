@@ -73,6 +73,7 @@ def test_cpu_tensors_take_plain_versions():
     from repro_torch import kernels
     from repro_torch.core import perf_model
     from repro_torch.kernels.auction_bid import ops as bid_ops
+    from repro_torch.kernels.auction_phase import ops as phase_ops
     from repro_torch.kernels.costmap import ops as cm_ops
 
     kernels.reset_launch_counts()
@@ -84,14 +85,19 @@ def test_cpu_tensors_take_plain_versions():
     prices = torch.zeros(40)
     idx, best, second = bid_ops.bid_top2(values, prices, prices)
     assert idx.dtype == torch.int32
+    price, owner, assigned, iters = phase_ops.auction_phase(
+        torch.zeros((40, 1)), values, torch.full((3,), -1e6),
+        torch.full((3,), 40, dtype=torch.int32), torch.ones(3, dtype=torch.bool), 1.0, 100)
+    assert assigned.dtype == torch.int32 and (assigned >= 0).all() and iters > 0
     assert kernels.launch_counts() == {
-        "costmap": 0, "auction_bid": 0, "flash_attention": 0, "decode_attention": 0,
-        "rglru_scan": 0, "rwkv6_scan": 0,
+        "costmap": 0, "auction_bid": 0, "auction_phase": 0, "flash_attention": 0,
+        "decode_attention": 0, "rglru_scan": 0, "rwkv6_scan": 0,
     }
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.auction_bid.kernel_cuda import bid_top2_cuda
+    from repro_torch.kernels.auction_phase.kernel_cuda import auction_phase_cuda
     from repro_torch.kernels.costmap.kernel_cuda import costmap_cuda
 
     x = torch.zeros((2, 3))
@@ -99,6 +105,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         costmap_cuda(torch.zeros((4, 101)), torch.zeros(2, dtype=torch.int32), x)
     with pytest.raises(ValueError, match="CUDA"):
         bid_top2_cuda(x, torch.zeros(3), torch.zeros(3))
+    with pytest.raises(ValueError, match="CUDA"):
+        auction_phase_cuda(torch.zeros((3, 1)), x, torch.zeros(2),
+                           torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.bool),
+                           1.0, 10)
 
 
 def test_serve_cuda_request_without_cuda_raises():
