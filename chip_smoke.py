@@ -42,7 +42,23 @@ exits non-zero; nothing is caught):
               the same full grid.
 4. round    - one full-width round (12,500 machines, 1,024 tasks): the
               cost build on the card against the numpy host reference,
-              every field bit-equal.
+              every field bit-equal. Then the migration path's pieces at
+              full width: a window of 4 rounds through `place_window`,
+              exogenous slots bit-equal to 4 sequential `auction` `place`
+              calls and chained slots to the same calls with the host's
+              slot accounting between them (4 costmap and 4 auction_phase
+              launches a window); 5 what-if lanes (beta in {0, 100/3600}
+              x every / every other mover, and every mover frozen), each
+              bit-equal to the lane solved alone and, unmasked, to `place`
+              under its params (5 launches of each kernel); the device
+              latency oracle's rows for 300 roots bit-equal to the host's
+              on a drifting-hotspot and regime-shift plane, at a regime
+              boundary and across hotspot steps. Times (host clock, each
+              call ending in a read back): the window against the 4
+              sequential calls, with the window's host staging and device
+              part and the calls' cost builds beside it; the 5 lanes
+              against one; the oracle's rows against numpy
+              `latency_rows`, and one host decomposition of a root.
 5. parity   - a 1,536-machine, 60 s replay with preemption and a machine
               failure on the card and on the CPU: every SimMetrics series
               and summary() equal.
@@ -58,6 +74,26 @@ exits non-zero; nothing is caught):
               then its device time under torch.profiler), and the
               avg_app_perf_area next to the random baseline's on the same
               workload (paper Fig. 5).
+6b. dynamic_parity - the migration controller (device latency oracle,
+              what-if lanes, `benchmarks/migration_quality.py`'s settings)
+              on the drifting_hotspot scenario, 1,536 machines, 60 s, on
+              the card and on the CPU: every SimMetrics series (the
+              controller's included), summary(), the counters and the
+              controller's audit events equal; then `auction_windowed` with
+              the oracle and plain migration rounds on the card equal to
+              the `auction` backend with host rows.
+6c. dynamic - the §6 Google cluster (12,500 machines), 120 s of the
+              synthetic workload at utilisation 0.6 on the drifting_hotspot
+              plane, with measured algo_s, twice, both through
+              `auction_windowed` and the oracle: ON (the controller, as in
+              6b) and OFF (PolicyParams(p_m=105, p_r=110), no controller).
+              Each: rounds, controller rounds, lanes, migrations, reverts,
+              iterations, launches (auction_phase and costmap once per
+              window round and per lane, auction_bid 0), wall, algo_s p50 /
+              p99 / max, sim.build_state beside the full phase's, the
+              what-if calls' time, the oracle's stats (fails unless its
+              floats per round are below M), peak device memory and
+              avg_app_perf_area. Fails if ON ran no controller round.
 7. attention_kernels - flash_attention and decode_attention against their
               plain versions on the card at the qwen3-0.6b serving shapes,
               in the dtypes the serving path gives them (f32 prefill;
@@ -138,7 +174,8 @@ exits non-zero; nothing is caught):
 
 Then a ``{"kernels": [...]}`` line (one entry per kernel: route, source,
 the TPU kernel it replaces, launches in the run of its main path - the
-full-width replay for the scheduler's kernels, the qwen3-0.6b serve for
+full-width replay for the scheduler's kernels (with the dynamic ON and OFF
+replays' beside them), the qwen3-0.6b serve for
 the attention kernels (with the recurrentgemma serve's beside them), the
 recurrentgemma and rwkv6 serves for the scans - max abs error and
 tolerance, kernel / device / plain / bound / library times at the main
@@ -227,6 +264,13 @@ SCHEDULER_KERNELS = ("costmap", "auction_bid", "auction_phase")
 PHASE_ROUNDS = ((1024, 300), (1536, 450), (8, 3))
 PRICE_WAR = (64, 60)
 PHASE_MAX_ITERS = 500_000
+# The migration path: a window of 4 full-width rounds, what-if lanes, and
+# the dynamic replays under `benchmarks/migration_quality.py`'s controller
+# settings on the drifting-hotspot scenario.
+WINDOW_ROUNDS = 4
+DYNAMIC_SCENARIO = "drifting_hotspot"
+QOS = dict(qos_threshold=0.95, qos_window=2, qos_hold_s=30.0)
+WHATIF_BETAS = (0.0, 100.0 / 3600.0)
 # Sources rebuilt on every run whose ptxas reports must show no spill.
 SPILL_GATED = ("flash_attention.cu", "decode_attention.cu", "rwkv6_scan.cu", "rglru_scan.cu",
                "auction_phase.cu")
@@ -698,6 +742,217 @@ def full_width_round_state(topo, plane, n_tasks: int, n_jobs: int, t: int, seed:
     )
 
 
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Median host wall time of ``fn`` (which ends in a device-to-host read,
+    so in a synchronised state) over ``reps`` runs, after one warm-up run."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _launches_of(fn) -> dict:
+    """The scheduler kernels' launches during one call of ``fn``."""
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    fn()
+    return {k: kernels.launch_counts()[k] for k in SCHEDULER_KERNELS}
+
+
+def round_window_check(topo, plane, params, device) -> dict:
+    """A window of WINDOW_ROUNDS full-width rounds through `place_window`,
+    in both slot modes, against sequential `auction` backend `place` calls
+    (exogenous: each round's own free slots; chained: the host's slot
+    accounting between the calls, the later rounds' rows as deltas)."""
+    from repro_torch.core import policy
+    from repro_torch.core import scheduler_backend as sb
+    from repro_torch.core.round_program import stack_round_states
+
+    R = WINDOW_ROUNDS
+    states = [full_width_round_state(topo, plane, MAIN_SHAPE[0], 300, r, SEED + r)
+              for r in range(R)]
+    seq = sb.AuctionBackend(params, topo, device=device)
+    win = sb.WindowedAuctionBackend(params, topo, device=device)
+    ctx = sb.RoundContext(rng=np.random.default_rng(SEED),
+                          task_counts=np.zeros(topo.n_machines, np.int64), n_ready=0)
+    out = {"rounds": R, "tasks": MAIN_SHAPE[0]}
+    # Exogenous slots: bit-equal to R sequential `place` calls.
+    want = [seq.place(s, ctx) for s in states]
+    got = win.place_window(states)
+    if not all(np.array_equal(g.cols, w.cols) and g.objective == w.objective
+               for g, w in zip(got, want)):
+        raise AssertionError("place_window (exogenous) differs from sequential place calls")
+    out["exogenous_launches"] = _launches_of(lambda: win.place_window(states))
+    # Chained slots: the later rounds' free slots are deltas on the carry.
+    rng = np.random.default_rng(SEED)
+    chained = [dataclasses.replace(s) for s in states]
+    for s in chained[1:]:
+        d = np.zeros(topo.n_machines, np.int32)
+        np.add.at(d, rng.integers(0, topo.n_machines, size=200), 1)
+        s.free_slots = d
+    free = chained[0].free_slots.astype(np.int64)
+    want_c = []
+    for r, s in enumerate(chained):
+        if r:
+            free = free + s.free_slots
+        p = seq.place(dataclasses.replace(s, free_slots=free.astype(np.int32)), ctx)
+        want_c.append(p)
+        np.subtract.at(free, p.cols[p.cols < topo.n_machines], 1)
+    got_c = win.place_window(chained, chain=True)
+    if not all(np.array_equal(g.cols, w.cols) and g.objective == w.objective
+               for g, w in zip(got_c, want_c)):
+        raise AssertionError("place_window (chained) differs from sequential place calls "
+                             "with host slot accounting")
+    if (free < 0).any():
+        raise AssertionError("chained window oversubscribed a machine")
+    out["chained_launches"] = _launches_of(lambda: win.place_window(chained, chain=True))
+    for mode in ("exogenous", "chained"):
+        n = out[f"{mode}_launches"]
+        if device == "cuda" and (n["auction_phase"] != R or n["costmap"] != R
+                                 or n["auction_bid"]):
+            raise AssertionError(f"{mode} window launches {n}, expected {R} phases")
+    out.update(
+        bit_equal=["exogenous", "chained"],
+        window_ms=_wall_ms(lambda: win.place_window(states)),
+        chained_window_ms=_wall_ms(lambda: win.place_window(chained, chain=True)),
+        sequential_place_ms=_wall_ms(lambda: [seq.place(s, ctx) for s in states]),
+    )
+    # Where the window's time goes: host staging (padding and stacking the
+    # R rounds), then the rounds on the device with their one read back;
+    # beside it the sequential calls' cost builds (staging, upload, costs).
+    _, prog = win._program(MAIN_SHAPE[0], 300)
+
+    def stack():
+        return stack_round_states(states, n_pad_tasks=prog.n_pad_tasks,
+                                  n_pad_jobs=prog.n_pad_jobs)
+
+    window = stack()
+    lut = seq.lut
+
+    def cost_builds():
+        for s in states:
+            policy.device_round_costs(s, topo, params, lut, n_pad_tasks=prog.n_pad_tasks,
+                                      n_pad_jobs=prog.n_pad_jobs)
+        _sync(device)
+
+    out.update(
+        window_stack_ms=_wall_ms(stack),
+        window_advance_ms=_wall_ms(
+            lambda: prog.advance(prog.init_state(states[0].free_slots), window)),
+        sequential_cost_build_ms=_wall_ms(cost_builds),
+        iterations=[int(i) for i in prog.advance(
+            prog.init_state(states[0].free_slots), window)[1].iterations],
+    )
+    return out
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def round_whatif_check(topo, plane, params, device) -> dict:
+    """WHATIF_LANES lanes of one full-width round: beta in {0, 100/3600} x
+    {every mover, every other mover}, plus a lane with every mover frozen
+    (the running third of the tasks are the movers). Each lane bit-equal
+    to the same lane solved alone; the unmasked lanes also to the
+    `auction` backend's `place` under the lane's params."""
+    from repro_torch.core import scheduler_backend as sb
+
+    state = full_width_round_state(topo, plane, MAIN_SHAPE[0], 300, 3, SEED + 7)
+    T = state.n_tasks
+    movers = state.cur_machine >= 0
+    every = np.ones(T, bool)
+    half = every.copy()
+    half[np.nonzero(movers)[0][::2]] = False
+    variants, masks = [params], [~movers]  # lane 0: all movers frozen
+    for b in (0.0, 100.0 / 3600.0):
+        for m in (every, half):
+            variants.append(dataclasses.replace(params, beta_scale=b))
+            masks.append(m)
+    masks = np.stack(masks)
+    win = sb.WindowedAuctionBackend(params, topo, device=device)
+    ctx = sb.RoundContext(rng=np.random.default_rng(SEED),
+                          task_counts=np.zeros(topo.n_machines, np.int64), n_ready=0)
+    res, _ = win.whatif_result(state, ctx, variants, active_masks=masks)
+    _, prog = win._program(T, state.n_jobs)
+    fields = ("assigned", "iterations", "per_task_cost", "per_task_true_cost",
+              "per_task_stay_cost")
+    for k, (v, m) in enumerate(zip(variants, masks)):
+        alone = prog.what_if(state, [v], active_masks=m[None])
+        if not all(np.array_equal(getattr(res, f)[k], getattr(alone, f)[0]) for f in fields):
+            raise AssertionError(f"what-if lane {k} differs from its lane solved alone")
+        if m.all():
+            p = sb.AuctionBackend(v, topo, device=device).place(state, ctx)
+            if not (np.array_equal(res.variant_cols(k), p.cols)
+                    and int(res.per_task_cost[k].astype(np.int64).sum()) == p.objective):
+                raise AssertionError(f"what-if lane {k} differs from place under its params")
+    if not (res.assigned[0, :T][~movers] >= 0).all():
+        raise AssertionError("the all-frozen lane left ready rows unsolved")
+    launches = _launches_of(lambda: win.whatif_result(state, ctx, variants, active_masks=masks))
+    K = len(variants)
+    if device == "cuda" and (launches["auction_phase"] != K or launches["costmap"] != K
+                             or launches["auction_bid"]):
+        raise AssertionError(f"what-if launches {launches}, expected {K} phases")
+    return {
+        "lanes": K, "tasks": T, "movers": int(movers.sum()), "bit_equal": True,
+        "iterations": [int(i) for i in res.iterations],
+        "lane_outcomes": [int(x) for x in res.lane_outcomes()],
+        "launches": launches,
+        "lanes_ms": _wall_ms(lambda: win.whatif_result(state, ctx, variants,
+                                                        active_masks=masks)),
+        "one_lane_ms": _wall_ms(lambda: prog.what_if(state, variants[1:2])),
+    }
+
+
+def oracle_plane(topo, duration_s: int):
+    """A drifting rack hotspot (two racks wide, 4x, one rack every 2 s)
+    and two regime shifts, seed SEED."""
+    from repro_torch.core import latency
+
+    ev = latency.LatencyEvents(
+        hotspots=(latency.DriftingHotspot(start_s=4.0, end_s=duration_s - 4.0, rack0=0,
+                                          drift_racks_per_s=0.5, width_racks=2,
+                                          multiplier=4.0),),
+        regime=latency.RegimeSchedule(times=(10.0, 20.0), frac=0.5),
+    )
+    return latency.LatencyPlane.synthesize(topo, duration_s, seed=SEED, events=ev)
+
+
+def oracle_rows_check(topo, device) -> dict:
+    """Oracle rows bit-equal to `plane.latency_rows` at 12,500 machines, at
+    a regime boundary and across hotspot steps; their times beside the
+    host's."""
+    from repro_torch.core import latency_device
+
+    plane = oracle_plane(topo, 30)
+    oracle = latency_device.DeviceLatencyOracle(plane, device=device)
+    roots = np.random.default_rng(SEED).integers(0, topo.n_machines, size=300)
+    times = (3, 4, 5, 9, 10, 11, 20)  # hotspot start and steps; shifts at 10 and 20
+    for t in times:
+        got = oracle.root_rows(roots, t).cpu().numpy()
+        if not np.array_equal(got, plane.latency_rows(roots, t)):
+            raise AssertionError(f"oracle rows differ from the host's at t={t}")
+
+    def rows():
+        oracle.root_rows(roots, 11)
+        _sync(device)
+
+    # A root seen for the first time (or in a new regime epoch) costs one
+    # host decomposition, hashed in numpy over all M machines.
+    return {"roots": len(roots), "times": list(times), "bit_equal": True,
+            "oracle_rows_ms": _wall_ms(rows), "host_rows_ms": _wall_ms(
+                lambda: plane.latency_rows(roots, 11), reps=3),
+            "decomposition_ms": _wall_ms(lambda: plane.row_decomposition(7, 1)),
+            "stats": oracle.stats()}
+
+
 def phase_round(device="cuda", n_machines: int = 12_500) -> dict:
     from repro_torch.core import auction, latency, perf_model, policy, topology
 
@@ -732,7 +987,10 @@ def phase_round(device="cuda", n_machines: int = 12_500) -> dict:
     info = {"phase": "round", "machines": n_machines, "tasks": state.n_tasks,
             "jobs": state.n_jobs, "fields_equal": fields,
             "placed": int(len(placed)), "iterations": res.iterations,
-            "total_cost": res.total_cost}
+            "total_cost": res.total_cost,
+            "window": round_window_check(topo, plane, params, device),
+            "whatif": round_whatif_check(topo, plane, params, device),
+            "oracle": oracle_rows_check(topo, device)}
     emit(info)
     return info
 
@@ -914,6 +1172,176 @@ def phase_full(device="cuda", n_machines: int = 12_500, duration_s: int = 90) ->
     }
     emit(info)
     return info
+
+
+# --------------------------------------------------------------------- #
+# The migration path (paper §7): controller, what-if lanes, device oracle
+
+
+def scenario_replay(topo, duration_s: int, device: str, mode: str, *,
+                    backend: str = "auction_windowed", oracle: bool = True,
+                    fixed_algo_s=None):
+    """A replay of DYNAMIC_SCENARIO's plane over ``synth_workload(0.6,
+    seed SEED)``. ``mode``: ``"on"`` the migration controller with
+    `benchmarks/migration_quality.py`'s settings (the scenario's params and
+    cadence, QoS threshold 0.95, window 2, hold 30 s, what-if betas);
+    ``"off"`` that benchmark's OFF (PolicyParams(p_m=105, p_r=110), no
+    controller); ``"migrate"`` the scenario's params and cadence with
+    plain migration rounds. Returns (sim, metrics, wall s, counters with
+    span seconds and counts, launches, audit events)."""
+    from repro_torch import kernels, obs
+    from repro_torch.core import latency, policy, scenarios, simulator, workload
+
+    scn = scenarios.get_scenario(DYNAMIC_SCENARIO)
+    plane = scn.plane(latency.LatencyPlane.synthesize(topo, duration_s, seed=SEED), duration_s)
+    wl = workload.synth_workload(topo, duration_s, seed=SEED, target_utilisation=0.6)
+    if mode == "off":
+        kw = dict(params=policy.PolicyParams(p_m=105, p_r=110))
+    else:
+        kw = dict(params=scn.policy_params(p_m=105, p_r=110),
+                  **scn.sim_config_kwargs(topo, duration_s, SEED))
+        if mode == "on":
+            kw.update(migration_controller=True, whatif_betas=WHATIF_BETAS, **QOS)
+    cfg = simulator.SimConfig(policy="nomora", backend=backend, device=device, seed=SEED,
+                              device_latency=oracle, fixed_algo_s=fixed_algo_s, **kw)
+    with obs.scope() as tel:
+        sim = simulator.Simulator(wl, plane, cfg)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = sim.run()
+        wall = time.perf_counter() - t0
+        launches = {k: kernels.launch_counts()[k] for k in SCHEDULER_KERNELS}
+        counters = obs.counters()
+        spans, n_spans = {}, {}
+        for rec in tel.spans:
+            spans[rec.name] = spans.get(rec.name, 0.0) + rec.dur_ns * 1e-9
+            n_spans[rec.name] = n_spans.get(rec.name, 0) + 1
+        audit = [{k: v for k, v in e.items() if k != "algo_s"} for e in tel.audit]
+    counters["spans_s"], counters["span_counts"] = spans, n_spans
+    return sim, metrics, wall, counters, launches, audit
+
+
+CONTROLLER_SERIES = ("controller_improvement_per_round", "degraded_jobs_per_round")
+CONTROLLER_SCALARS = ("controller_rounds",)
+
+
+def _metric_diffs(a, b) -> list:
+    fields = SERIES + SCALARS + CONTROLLER_SERIES + CONTROLLER_SCALARS
+    diffs = [f for f in fields if getattr(a, f) != getattr(b, f)]
+    sa, sb = a.summary(), b.summary()
+    return diffs + [k for k in sa
+                    if not (sa[k] == sb[k] or (np.isnan(sa[k]) and np.isnan(sb[k])))]
+
+
+def phase_dynamic_parity(device="cuda", n_machines: int = 1536, duration_s: int = 60) -> dict:
+    """The controller with the oracle and what-if lanes, card against CPU:
+    every SimMetrics series (the controller's included), summary(), the
+    counters and the controller's audit events equal; then the windowed
+    backend fed by the oracle without the controller against the
+    ``auction`` backend with host rows, on the card."""
+    from repro_torch.core.topology import Topology
+
+    topo = Topology(n_machines, 48, 16, slots_per_machine=8)
+    _, card, card_s, cc, card_launches, ca = scenario_replay(topo, duration_s, device, "on",
+                                                             fixed_algo_s=0.0)
+    _, cpu, cpu_s, pc, _, pa = scenario_replay(topo, duration_s, "cpu", "on",
+                                               fixed_algo_s=0.0)
+    diffs = _metric_diffs(card, cpu)
+    strip = ("spans_s", "span_counts")
+    if {k: v for k, v in cc.items() if k not in strip} != {
+            k: v for k, v in pc.items() if k not in strip}:
+        diffs.append("counters")
+    if ca != pa:
+        diffs.append("audit")
+    if diffs:
+        raise AssertionError(f"dynamic parity: card and CPU differ in {diffs}")
+    if card.controller_rounds == 0:
+        raise AssertionError("dynamic parity: the controller never ran")
+    _, win, win_s, _, _, _ = scenario_replay(topo, duration_s, device, "migrate",
+                                             fixed_algo_s=0.0)
+    _, host, host_s, _, _, _ = scenario_replay(topo, duration_s, device, "migrate",
+                                               backend="auction", oracle=False,
+                                               fixed_algo_s=0.0)
+    diffs = _metric_diffs(win, host)
+    if diffs:
+        raise AssertionError(f"windowed + oracle differs from auction + host rows in {diffs}")
+    info = {"phase": "dynamic_parity", "machines": n_machines, "duration_s": duration_s,
+            "scenario": DYNAMIC_SCENARIO, "rounds": card.rounds,
+            "controller_rounds": card.controller_rounds, "lanes": cc.get("whatif.lanes", 0),
+            "tasks_migrated": card.tasks_migrated, "audit_events": len(ca),
+            "launches": card_launches, "card_wall_s": card_s, "cpu_wall_s": cpu_s,
+            "equal": list(SERIES + SCALARS + CONTROLLER_SERIES + CONTROLLER_SCALARS)
+            + ["summary", "counters", "audit"],
+            "no_controller": {"rounds": win.rounds, "tasks_migrated": win.tasks_migrated,
+                              "windowed_oracle_wall_s": win_s, "auction_host_rows_wall_s": host_s,
+                              "equal": True}}
+    emit(info)
+    return info
+
+
+def phase_dynamic(device="cuda", n_machines: int = 12_500, duration_s: int = 120,
+                  full: dict | None = None) -> dict:
+    """The paper's §6 Google cluster under DYNAMIC_SCENARIO's drifting
+    hotspot, ON (the controller) and OFF, both with the device oracle and
+    measured algo_s."""
+    import torch
+
+    from repro_torch.core.topology import google_topology
+
+    topo = google_topology(n_machines)
+    on_card = device == "cuda"
+    out = {"phase": "dynamic", "machines": n_machines, "duration_s": duration_s,
+           "scenario": DYNAMIC_SCENARIO}
+    for mode in ("on", "off"):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sim, m, wall, c, launches, audit = scenario_replay(topo, duration_s, device, mode)
+        algo = np.asarray(m.algo_runtime_s, np.float64)
+        if not (m.rounds > 0 and m.tasks_placed > 0 and np.isfinite(algo).all()):
+            raise AssertionError(f"dynamic {mode}: no rounds or non-finite times")
+        if (sim.free_slots < 0).any() or (sim.free_slots > topo.slots_per_machine).any():
+            raise AssertionError(f"dynamic {mode}: slot accounting broken")
+        solves = int(c.get("window.rounds", 0))
+        lanes = int(c.get("whatif.lanes", 0))
+        if on_card and not (launches["auction_phase"] == solves + lanes
+                            and launches["costmap"] == solves + lanes
+                            and launches["auction_bid"] == 0):
+            raise AssertionError(f"dynamic {mode}: launches {launches} vs {solves} solves "
+                                 f"and {lanes} lane solves")
+        st = sim.oracle.stats()
+        if not st["floats_per_round"] < n_machines:
+            raise AssertionError(f"dynamic {mode}: oracle uploads {st['floats_per_round']} "
+                                 f"floats a round, not below M = {n_machines}")
+        spans, counts = c["spans_s"], c["span_counts"]
+        row = {
+            "rounds": m.rounds, "controller_rounds": m.controller_rounds,
+            "solves": solves, "lanes": lanes, "tasks_placed": m.tasks_placed,
+            "tasks_migrated": m.tasks_migrated,
+            "controller_reverts": int(c.get("controller.reverts", 0)),
+            "qos_triggers": int(c.get("qos.triggers", 0)),
+            "auction_iterations": int(c.get("auction.iterations", 0)),
+            "launches": launches, "wall_s": wall,
+            "algo_s_p50": float(np.median(algo)),
+            "algo_s_p99": float(np.percentile(algo, 99)),
+            "algo_s_max": float(algo.max()),
+            "sim_build_state_s": spans.get("sim.build_state", 0.0),
+            "full_sim_build_state_s": None if full is None else full["sim_build_state_s"],
+            "whatif_s": spans.get("round_program.whatif", 0.0),
+            "whatif_calls": counts.get("round_program.whatif", 0),
+            "whatif_ms_per_call": (spans.get("round_program.whatif", 0.0) * 1e3
+                                   / max(counts.get("round_program.whatif", 0), 1)),
+            "advance_s": spans.get("round_program.advance", 0.0),
+            "spans_s": spans,
+            "oracle": st,
+            "max_memory_allocated": int(torch.cuda.max_memory_allocated()) if on_card else None,
+            "avg_app_perf_area": m.summary()["avg_app_perf_area"],
+            "audit_events": len(audit),
+        }
+        out[mode] = row
+    if out["on"]["controller_rounds"] == 0:
+        raise AssertionError("dynamic: no controller round ran")
+    emit(out)
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1659,14 +2087,19 @@ def _entry(name: str, main: dict, launches: int) -> dict:
     }
 
 
-def kernels_line(kern: dict, full: dict, att: dict, served: dict, rec: dict,
+def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict, rec: dict,
                  rec_served: dict) -> dict:
     """One entry per kernel at its main shape; ``rec_served`` maps an arch
-    to its serve phase's output."""
+    to its serve phase's output. The scheduler's kernels count their
+    launches in the full replay, with the dynamic replays' beside them."""
     entries = []
     for name, rows in kern.items():
         main = next(r for r in rows if tuple(r["shape"]) == MAIN_SHAPE)
         entries.append({**_entry(name, main, full["launches"][name]), "shapes": rows,
+                        "launches_by_phase": {
+                            "full": full["launches"][name],
+                            "dynamic_on": dynamic["on"]["launches"][name],
+                            "dynamic_off": dynamic["off"]["launches"][name]},
                         "library_ms_null_because": NO_LIBRARY})
     gemma = rec_served["recurrentgemma-2b"]
     for name, rows in att.items():
@@ -1699,12 +2132,14 @@ def main() -> int:
     phase_round()
     phase_parity()
     full = phase_full()
+    phase_dynamic_parity()
+    dynamic = phase_dynamic(full=full)
     served = phase_serve()
     phase_serve_parity()
     rec_served = {arch: phase_serve(arch=arch, **kw) for arch, kw in RECURRENT_SERVES.items()}
     for arch in RECURRENT_SERVES:
         phase_recurrent_parity(arch)
-    emit(kernels_line(kern, full, att, served, rec, rec_served))
+    emit(kernels_line(kern, full, dynamic, att, served, rec, rec_served))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

@@ -8,8 +8,9 @@ explicit ``device``, with its hot spots as CUDA C++ kernels built at first
 use (`repro_torch.kernels`).
 
 Layout:
-  core/         topology, perf_model, latency, workload, policy, auction,
-                scheduler_backend, engine, metrics, simulator
+  core/         topology, perf_model, latency, latency_device, workload,
+                policy, auction, round_program, scheduler_backend, engine,
+                metrics, scenarios, simulator
   kernels/      costmap, auction_bid, auction_phase, attention, scans: kernel
                 wrapper + plain version + dispatch
   csrc/         the CUDA C++ sources, compiled for sm_90a by nvcc

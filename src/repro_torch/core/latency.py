@@ -17,8 +17,8 @@ paper's migration controller reacts to (§7, Fig. 2):
 
 - `DriftingHotspot` — a congestion hotspot pinned to a window of racks whose
   position drifts over time; every pair with an endpoint in a hot rack sees
-  its RTT multiplied. Multiplicative-only on purpose: a device-resident
-  oracle (the reference's `latency_device`, not yet ported) reproduces the same float32
+  its RTT multiplied. Multiplicative-only on purpose: the device-resident
+  oracle (`latency_device.DeviceLatencyOracle`) reproduces the same float32
   products bit for bit (no fused multiply-add reassociation is possible in
   a pure product chain).
 - `RegimeSchedule` — at each shift time a random fraction of pairs re-rolls

@@ -20,14 +20,19 @@ Backends in this package:
   buckets) into `auction.solve_transportation_device`; on the card the
   costmap and auction_phase kernels run inside it. ``auction_host`` is the
   same solver fed by the numpy `dense_costs` reference.
+- `WindowedAuctionBackend` (``auction_windowed``) — the same round math
+  through the device-resident `core.round_program.RoundProgram`: `place`
+  is an R=1 window (bit-identical to ``auction``), `place_window` runs R
+  staged rounds with one read back, `place_whatif` / `whatif_result` run K
+  parameter and mover-mask lanes of one round (the migration controller's
+  what-if axis).
 - `RandomBackend` / `LoadSpreadingBackend` (``random``/``load_spreading``)
   — the paper §6.1 heuristics.
 - `RandomSolverBackend` / `SpreadSolverBackend` — Firmament-style
   baselines: fixed/load-derived costs through the auction engine.
 
-Not ported yet (they raise, naming their ROADMAP.md module-queue item):
-``auction_windowed`` (item 8, round program) and ``mcmf`` (item 5, flow
-network + MCMF).
+Not ported yet (it raises, naming its ROADMAP.md module-queue item):
+``mcmf`` (item 5, flow network + MCMF).
 """
 
 from __future__ import annotations
@@ -388,8 +393,195 @@ class AuctionBackend(SchedulerBackend):
         )
 
 
+class WindowedAuctionBackend(AuctionBackend):
+    """NoMora round through the device-resident `RoundProgram`.
+
+    The same cost model and auction solver as ``auction``, but the whole
+    round — cost build, value prep, solve, objective — runs in the window
+    program, whose round-invariant inputs (perf LUT, tie-jitter matrix) and
+    state stay on the device across calls. Entry points:
+
+    - `place` — `SchedulerBackend` contract, one round per call (an R=1
+      window): bit-identical placements to ``auction``. ``algo_s`` covers
+      cost build plus solve (they are one program, as in the reference)
+      and ends after the host read of the columns.
+    - `place_window` — R rounds with no host read between them; per-round
+      results are bit-identical to R sequential `place` calls. ``chain``
+      threads slot consumption through the window on the device (round r+1
+      sees round r's placements). Each `Placement` reports the window's
+      time over R.
+    - `place_whatif` — K `PolicyParams` variants of one round, returning
+      the placement of the variant with the lowest *true* (undiscounted)
+      cost; `whatif_result` returns all K lanes (with per-lane mover
+      masks) for the migration controller.
+
+    Serving (``supports_serving``): `pin_serving` fixes a bucket floor so
+    every round of a long-lived loop re-enters one program and its carry
+    regardless of the live-task count, and `warm_serving` runs it once.
+    """
+
+    supports_window = True
+    supports_whatif = True
+
+    def __init__(self, params: PolicyParams, topo: Topology, lut_table=None, *,
+                 device="cuda", tie_jitter: int = 9, exact: bool = False):
+        super().__init__(params, topo, lut_table, fused=True, device=device,
+                         tie_jitter=tie_jitter, exact=exact)
+        self.name = "auction_windowed"
+        self.supports_serving = True  # buckets pin via pin_serving
+        self._programs: dict = {}  # (Tp, Jp, chain) -> RoundProgram
+        self._states: dict = {}  # (Tp, Jp, chain) -> DeviceRoundState
+        self._pin = (0, 0)  # serving bucket floor (Tp, Jp); (0, 0) = unpinned
+
+    def pin_serving(self, n_tasks: int, n_jobs: int) -> None:
+        """Pin the (task, job) bucket floor for long-lived serving: every
+        later `_program` lookup rounds up to at least this bucket, so rounds
+        with any live-task count <= the pin re-enter the SAME program and
+        carry. Rounds that exceed the pin fall onto a larger bucket."""
+        self._pin = (
+            auction._bucket(max(int(n_tasks), 1)),
+            auction._bucket(max(int(n_jobs), 1), 8),
+        )
+
+    def warm_serving(self, free_slots: np.ndarray, root_latency=None) -> None:
+        """Run the pinned R=1 window program on a synthetic round (see
+        `RoundProgram.warmup`) so the serving loop's first real decision
+        finds everything built. Results-harmless: the warmup carry is
+        discarded, and exogenous windows never read carried occupancy."""
+        _key, prog = self._program(max(self._pin[0], 1), max(self._pin[1], 1))
+        prog.warmup(np.asarray(free_slots), root_latency=root_latency)
+
+    def _program(self, n_tasks: int, n_jobs: int, *, chain: bool = False):
+        from .round_program import RoundProgram
+
+        key = (
+            max(auction._bucket(n_tasks), self._pin[0]),
+            max(auction._bucket(n_jobs, 8), self._pin[1]),
+            chain,
+        )
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = RoundProgram(
+                self.topo,
+                self.params,
+                self.lut,
+                n_pad_tasks=key[0],
+                n_pad_jobs=key[1],
+                slots_per_machine=self.topo.slots_per_machine,
+                tie_jitter=self.tie_jitter,
+                exact=self.exact,
+                chain_slots=chain,
+                device=self.device,
+            )
+        return key, prog
+
+    def _state_for(self, key, prog, free_slots):
+        """Per-bucket persistent carry, built on first use. The entry is
+        *popped*: if `advance` raises (iteration cap, convergence) the
+        next call on this bucket starts from a fresh carry; the caller
+        re-caches the advanced state on success."""
+        st = self._states.pop(key, None)
+        if st is None:
+            st = prog.init_state(free_slots)
+        return st
+
+    def place(self, state: RoundState, ctx: RoundContext) -> Placement:
+        from .round_program import stack_round_states
+
+        key, prog = self._program(state.n_tasks, state.n_jobs)
+        window = stack_round_states(
+            [state], n_pad_tasks=prog.n_pad_tasks, n_pad_jobs=prog.n_pad_jobs,
+            exact=self.exact,
+        )
+        dstate = self._state_for(key, prog, state.free_slots)
+        with solver_clock("solver.auction_windowed") as clk:
+            dstate, res = prog.advance(dstate, window)
+        self._states[key] = dstate
+        return Placement(
+            cols=res.round_cols(0),
+            algo_s=clk.elapsed,
+            objective=res.round_objective(0),
+        )
+
+    def place_window(
+        self, states, ctx: Optional[RoundContext] = None, *, chain: bool = False
+    ):
+        """Solve R staged rounds with one read back.
+
+        ``chain=False``: every round uses its own ``free_slots`` exactly as
+        R sequential `place` calls would (bit-identical). ``chain=True``:
+        round 0 starts from ``states[0].free_slots`` and later rounds'
+        ``free_slots`` fields are per-round *deltas* on the device-carried
+        occupancy (see `round_program.RoundProgram`). Returns a list of
+        `Placement`.
+        """
+        from .round_program import stack_round_states
+
+        if not states:
+            return []
+        key, prog = self._program(
+            max(s.n_tasks for s in states),
+            max(s.n_jobs for s in states),
+            chain=chain,
+        )
+        window = stack_round_states(
+            states, n_pad_tasks=prog.n_pad_tasks, n_pad_jobs=prog.n_pad_jobs,
+            exact=self.exact,
+        )
+        if chain:
+            # Round 0's row becomes the delta on the freshly-seeded carry.
+            dstate = prog.init_state(states[0].free_slots)
+            window.free_slots[0] = 0
+        else:
+            dstate = self._state_for(key, prog, states[0].free_slots)
+        with solver_clock(
+            "solver.auction_windowed.window", rounds=len(states), chain=chain
+        ) as clk:
+            dstate, res = prog.advance(dstate, window)
+        algo_s = clk.per_round(len(states))
+        if not chain:
+            # Chained windows seed a fresh carry per call; caching theirs
+            # would pin device buffers nothing reads again.
+            self._states[key] = dstate
+        return [
+            Placement(cols=res.round_cols(r), algo_s=algo_s,
+                      objective=res.round_objective(r))
+            for r in range(len(states))
+        ]
+
+    def place_whatif(self, state: RoundState, ctx: RoundContext, variants) -> Placement:
+        """One round under K `PolicyParams` variants; returns the placement
+        of the variant with the lowest true (undiscounted) cost. With a
+        single variant this is `place` under that variant's params, bit for
+        bit."""
+        _key, prog = self._program(state.n_tasks, state.n_jobs)
+        variants = list(variants)
+        with solver_clock("solver.auction_windowed.whatif", lanes=len(variants)) as clk:
+            res = prog.what_if(state, variants)
+        best = res.best_variant()
+        return Placement(
+            cols=res.variant_cols(best),
+            algo_s=clk.elapsed,
+            objective=int(res.per_task_cost[best].astype(np.int64).sum()),
+        )
+
+    def whatif_result(self, state: RoundState, ctx: RoundContext, variants,
+                      active_masks=None):
+        """The raw what-if axis for the migration controller: K
+        (PolicyParams, mover-mask) lanes of one round, returning the full
+        `WhatIfResult` (placements, true costs, stay costs) and the lanes'
+        wall time — the controller ranks lanes and applies budgets on the
+        host."""
+        _key, prog = self._program(state.n_tasks, state.n_jobs)
+        variants = list(variants)
+        with solver_clock("solver.auction_windowed.whatif", lanes=len(variants)) as clk:
+            res = prog.what_if(state, variants, active_masks=active_masks)
+        return res, clk.elapsed
+
+
 BACKEND_NAMES = (
     "auction",
+    "auction_windowed",
     "auction_host",
     "random",
     "load_spreading",
@@ -400,7 +592,6 @@ BACKEND_NAMES = (
 #: Reference backends this package does not have yet, with the ROADMAP.md
 #: module-queue item that ports each.
 NOT_PORTED = {
-    "auction_windowed": "ROADMAP.md module queue item 8 (round program)",
     "mcmf": "ROADMAP.md module queue item 5 (flow network + MCMF)",
 }
 
@@ -424,6 +615,8 @@ def make_backend(
         return SpreadSolverBackend(params, topo, device=device)
     if name == "auction":
         return AuctionBackend(params, topo, lut_table, fused=True, device=device)
+    if name == "auction_windowed":
+        return WindowedAuctionBackend(params, topo, lut_table, device=device)
     if name == "auction_host":
         return AuctionBackend(params, topo, lut_table, fused=False, device=device)
     if name in NOT_PORTED:

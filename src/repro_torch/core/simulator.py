@@ -6,7 +6,11 @@ set, with the reference's semantics (1 s latency refresh and round cadence,
 roots placed first on a random free machine, non-root tasks placed relative
 to their root in a later round, preemption with the beta discount, placement
 latency including the round's algorithm runtime, failures re-queueing a
-machine's tasks, straggler-triggered migration rounds).
+machine's tasks, straggler-triggered migration rounds), and the paper's
+§7 migration path: what-if migration rounds (``whatif_betas``), the
+device-resident latency oracle (``device_latency``) and the QoS-driven
+migration controller (``migration_controller``), all on the
+``auction_windowed`` backend.
 
 Task state is structure-of-arrays (`engine.TaskTable`); the host side is
 numpy, draw for draw the reference's streams. The scheduling round runs on
@@ -15,10 +19,9 @@ backend's round goes through the costmap and auction_phase CUDA kernels.
 With ``fixed_algo_s`` set, `SimMetrics` are bit-identical to the
 reference's on the same workload and plane.
 
-Not ported yet (setting them raises NotImplementedError): streaming
-metrics, what-if migration (``whatif_betas``), the device latency oracle
-(``device_latency``) and the migration controller; trace cursors are not
-ported either (the workload is a materialised `Workload`).
+Not ported yet: streaming metrics (setting ``streaming_metrics`` raises
+NotImplementedError) and trace cursors (the workload is a materialised
+`Workload`).
 """
 
 from __future__ import annotations
@@ -30,14 +33,14 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.device import resolve_device
-from repro_torch.distributed.straggler import StragglerDetector
+from repro_torch.distributed.straggler import QoSTracker, StragglerDetector
 
 from . import perf_model
 from .engine import EMPTY_IDS, JobTable, TaskTable, drop_positions, take_ready
 from .latency import LatencyPlane
 from .metrics import SimMetrics
 from .policy import PolicyParams, RoundState
-from .scheduler_backend import RoundContext, backend_for_config
+from .scheduler_backend import Placement, RoundContext, backend_for_config
 from .workload import Job
 
 PolicyName = Literal[
@@ -80,19 +83,23 @@ class JobRec:
 
 @dataclasses.dataclass(frozen=True)
 class MigrationConfig:
-    """Grouped view of SimConfig's migration knobs.
+    """Grouped view of SimConfig's migration/controller knobs.
 
     Construct `SimConfig(migration=MigrationConfig(...))` or keep the
     flat kwargs (``migration_interval_s=...``) — both spellings populate
     the same flat fields; the grouped object wins where both are given.
-    Read back via `SimConfig.migration_cfg`. (The reference's QoS
-    controller knobs arrive with the controller, ROADMAP module item 8.)
+    Read back via `SimConfig.migration_cfg`.
     """
 
     interval_s: int = 10
     straggler_threshold: Optional[float] = None
     whatif_betas: tuple = ()
     controller: bool = False
+    qos_threshold: float = 0.9
+    qos_window: int = 2
+    qos_clear_margin: float = 0.02
+    qos_hold_s: float = 45.0
+    budget: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,14 +138,37 @@ class SimConfig:
     # response times include the round's algorithm runtime, so wall-clock
     # jitter leaks into the metrics; parity tests pin it (usually to 0.0).
     fixed_algo_s: float | None = None
-    # The reference's streaming metrics, what-if migration rounds, device
-    # latency oracle and QoS migration controller: not ported yet, so
-    # setting any of them raises NotImplementedError (ROADMAP module
-    # items 7-8).
+    # The reference's bounded streaming metrics: not ported yet, so setting
+    # it raises NotImplementedError (ROADMAP module item 7).
     streaming_metrics: bool = False
+    # What-if migration (paper §7 "pick a better placement"): candidate
+    # beta_scale values evaluated per migration/straggler round through the
+    # backend's what-if axis; the variant whose placement has the lowest
+    # *true* (undiscounted) cost is applied. Empty = regular single-solve
+    # rounds (the parity default). Requires a backend with `place_whatif`
+    # (``auction_windowed``).
     whatif_betas: tuple = ()
+    # ---- time-varying plane + continuous migration controller (§7) ---- #
+    # Device-resident latency oracle: each round's root-latency rows are
+    # computed on the device from incremental per-second plane updates (the
+    # 24-float series column + rack hotspot multipliers; see
+    # latency_device.DeviceLatencyOracle) and handed to the round program
+    # as device tensors — no host (J, M) rebuild or upload per round.
+    # Requires the windowed backend. Bit-identical to the host path.
     device_latency: bool = False
+    # Close the §7 loop: detect QoS-degraded jobs from the perf-sampling
+    # path (consecutive-sample trigger window with hysteresis + a
+    # post-migration hold-down, never a single-sample trigger), evaluate
+    # candidate re-placements — beta scales x mover subsets — through the
+    # backend's what-if axis each migration round, and migrate under
+    # `migration_budget` ranked by true-cost improvement. Requires
+    # preemption and the auction_windowed backend.
     migration_controller: bool = False
+    qos_threshold: float = 0.9  # degraded below this predicted perf
+    qos_window: int = 2  # consecutive below-threshold samples to trigger
+    qos_clear_margin: float = 0.02  # hysteresis band above the threshold
+    qos_hold_s: float = 45.0  # post-migration re-trigger hold-down
+    migration_budget: int = 256  # max migrations per controller round
     # Grouped construction (InitVar: consumed by __post_init__, never a
     # field — `dataclasses.replace(cfg, ...)` keeps working on the flats).
     migration: dataclasses.InitVar[Optional[MigrationConfig]] = None
@@ -156,6 +186,11 @@ class SimConfig:
             self.straggler_threshold = migration.straggler_threshold
             self.whatif_betas = migration.whatif_betas
             self.migration_controller = migration.controller
+            self.qos_threshold = migration.qos_threshold
+            self.qos_window = migration.qos_window
+            self.qos_clear_margin = migration.qos_clear_margin
+            self.qos_hold_s = migration.qos_hold_s
+            self.migration_budget = migration.budget
         if metrics is not None:
             self.streaming_metrics = metrics.streaming
             self.perf_sample_interval_s = metrics.perf_sample_interval_s
@@ -169,6 +204,11 @@ class SimConfig:
             straggler_threshold=self.straggler_threshold,
             whatif_betas=self.whatif_betas,
             controller=self.migration_controller,
+            qos_threshold=self.qos_threshold,
+            qos_window=self.qos_window,
+            qos_clear_margin=self.qos_clear_margin,
+            qos_hold_s=self.qos_hold_s,
+            budget=self.migration_budget,
         )
 
     @property
@@ -194,13 +234,11 @@ class Simulator:
         self.topo = workload.topo
         self.plane = plane
         self.cfg = config
-        for flag in ("streaming_metrics", "whatif_betas", "device_latency",
-                     "migration_controller"):
-            if getattr(config, flag):
-                raise NotImplementedError(
-                    f"SimConfig.{flag} is not ported to repro_torch yet "
-                    "(ROADMAP.md module queue items 7-8)"
-                )
+        if config.streaming_metrics:
+            raise NotImplementedError(
+                "SimConfig.streaming_metrics is not ported to repro_torch yet "
+                "(ROADMAP.md module queue item 7)"
+            )
         self.device = resolve_device(config.device)
         self.rng = np.random.default_rng(config.seed)
         self.metrics = SimMetrics()
@@ -219,6 +257,32 @@ class Simulator:
         self.pending: np.ndarray = EMPTY_IDS  # non-root task ids, queue order
         self.running: np.ndarray = EMPTY_IDS  # placed task ids, start order
         self.backend = backend_for_config(config, self.topo, self.lut)
+        if config.whatif_betas and not self.backend.supports_whatif:
+            raise ValueError(
+                f"whatif_betas requires a backend with a what-if axis "
+                f"(auction_windowed), got {self.backend.name!r}"
+            )
+        if config.migration_controller:
+            if not self.backend.supports_whatif:
+                raise ValueError(
+                    f"migration_controller requires a backend with a what-if "
+                    f"axis (auction_windowed), got {self.backend.name!r}"
+                )
+            if not config.params.preemption:
+                raise ValueError(
+                    "migration_controller requires params.preemption=True "
+                    "(it migrates running tasks)"
+                )
+        self.oracle = None
+        if config.device_latency:
+            if not self.backend.supports_whatif:
+                raise ValueError(
+                    f"device_latency requires the windowed backend "
+                    f"(auction_windowed), got {self.backend.name!r}"
+                )
+            from .latency_device import DeviceLatencyOracle
+
+            self.oracle = DeviceLatencyOracle(plane, device=self.device)
         self.dead: set = set()  # failed machines
         self.dead_mask = np.zeros(M, bool)
         self._failures = sorted(config.failures)
@@ -228,6 +292,16 @@ class Simulator:
             else None
         )
         self._straggler_jobs: set = set()
+        self.qos = (
+            QoSTracker(
+                threshold=config.qos_threshold,
+                window=config.qos_window,
+                clear_margin=config.qos_clear_margin,
+                hold_s=config.qos_hold_s,
+            )
+            if config.migration_controller
+            else None
+        )
 
     # ------------------------------------------------------------------ #
 
@@ -327,6 +401,15 @@ class Simulator:
             if len(self.pending):
                 self.tt.wait_s[self.pending] += cfg.round_interval_s
 
+        if self.oracle is not None and obs.enabled():
+            # Mirror the device oracle's upload/LRU accounting into the
+            # counter namespace (one shot — the oracle is per-Simulator).
+            for key, val in self.oracle.stats().items():
+                if key in (
+                    "round_uploads", "uploaded_floats",
+                    "decomp_builds", "decomp_hits",
+                ):
+                    obs.add(f"oracle.{key}", float(val))
         return self.metrics
 
     # ------------------------------------------------------------------ #
@@ -402,9 +485,13 @@ class Simulator:
                 # instead of O(all jobs ever) on multi-week replays.
                 # (_straggler_jobs itself is cleared every straggler round
                 # and must keep done jobs until then — seed semantics.)
-                if self.straggler is not None:
+                if self.straggler is not None or self.qos is not None:
                     for j in np.nonzero(newly)[0]:
-                        self.straggler.forget(int(self.jt.job_id[j]))
+                        jid = int(self.jt.job_id[j])
+                        if self.straggler is not None:
+                            self.straggler.forget(jid)
+                        if self.qos is not None:
+                            self.qos.forget(jid)
 
     def _start_batch(
         self, ids: np.ndarray, machines: np.ndarray, t: float, algo_s: float
@@ -501,7 +588,13 @@ class Simulator:
         task_job = np.searchsorted(job_ids_sorted, jid_actual).astype(np.int64)
         root_machine = self.jt.root_machine[job_dense_sorted].astype(np.int64)
         if with_latency:
-            root_latency = self.plane.latency_rows(root_machine, int(t))
+            # Canonical batched rows; with the device oracle they are
+            # tensors computed on the device from incremental plane updates
+            # and never come back to the host (bit-identical either way).
+            if self.oracle is not None:
+                root_latency = self.oracle.root_rows(root_machine, int(t))
+            else:
+                root_latency = self.plane.latency_rows(root_machine, int(t))
         else:
             # Cost-model-free backends never read the latency plane; a
             # zero-width stand-in makes accidental use fail loudly.
@@ -523,8 +616,14 @@ class Simulator:
             free_slots=free,
         )
 
-    def _select_movers(self) -> np.ndarray:
-        """Running tasks eligible to migrate this round (seed order)."""
+    def _select_movers(self, restrict_jobs=None) -> np.ndarray:
+        """Running tasks eligible to migrate this round (seed order).
+
+        ``restrict_jobs`` (iterable of workload job ids) limits movers to
+        those jobs — the migration controller passes its QoS-degraded set
+        so only degraded jobs' tasks are candidates (takes precedence over
+        the straggler filter).
+        """
         cfg = self.cfg
         if not len(self.running):
             return EMPTY_IDS
@@ -535,7 +634,11 @@ class Simulator:
         # would silently index latency_from(-1) as machine M-1. Hold such
         # tasks until their root is re-placed.
         keep &= self.jt.root_machine[self.tt.job[self.running]] >= 0
-        if self._straggler_jobs:
+        if restrict_jobs is not None:
+            jid = self.jt.job_id[self.tt.job[self.running]]
+            wanted = np.fromiter(restrict_jobs, np.int64, len(restrict_jobs))
+            keep &= np.isin(jid, wanted)
+        elif self._straggler_jobs:
             jid = self.jt.job_id[self.tt.job[self.running]]
             keep &= np.isin(
                 jid, np.fromiter(self._straggler_jobs, np.int64, len(self._straggler_jobs))
@@ -565,8 +668,20 @@ class Simulator:
         # random_solver their presence even shifts the rng stream) and
         # clears the straggler set, but only migration-capable backends
         # later apply the mover columns; the two §6.1 heuristics do neither.
+        degraded: Dict[int, float] = {}
         if migration_round and backend.selects_movers:
-            mover_ids = self._select_movers()
+            if self.qos is not None:
+                # Continuous controller: only QoS-degraded jobs' tasks are
+                # migration candidates (the trigger window already debounced
+                # them; healthy jobs are never churned).
+                degraded = self.qos.degraded_jobs()
+                mover_ids = (
+                    self._select_movers(restrict_jobs=degraded)
+                    if degraded
+                    else EMPTY_IDS
+                )
+            else:
+                mover_ids = self._select_movers()
             self._straggler_jobs.clear()
         if not len(ready_ids) and not len(mover_ids):
             # A migration round with zero eligible movers still samples the
@@ -575,6 +690,8 @@ class Simulator:
             if migration_round and backend.supports_migration:
                 self.metrics.migrated_pct_per_round.append(0.0)
                 obs.gauge("sim.migrated_pct", 0.0)
+                if self.qos is not None:
+                    self._record_controller(0.0, len(degraded))
             return
 
         with obs.span(
@@ -587,7 +704,37 @@ class Simulator:
         ctx = RoundContext(
             rng=self.rng, task_counts=self.task_counts, n_ready=len(ready_ids)
         )
-        placement = backend.place(state, ctx)
+        # Continuous migration controller: (beta x mover-subset)
+        # re-placement hypotheses plus an all-frozen baseline through the
+        # what-if axis, pick the lowest true-cost outcome, and cap the
+        # round's migrations at the preemption budget.
+        ctrl_info = None
+        if (
+            migration_round
+            and self.qos is not None
+            and len(mover_ids)
+            and backend.supports_whatif
+        ):
+            placement, ctrl_info = self._controller_place(
+                state, ctx, mover_ids, degraded, n_ready=len(ready_ids), t=t
+            )
+        # What-if migration rounds: evaluate K preemption-aggressiveness
+        # (beta) variants and apply the placement with the best true
+        # (undiscounted) cost. Off by default; the single-solve path below
+        # stays the bit-parity reference.
+        elif (
+            migration_round
+            and cfg.whatif_betas
+            and len(mover_ids)
+            and backend.supports_whatif
+        ):
+            variants = [
+                dataclasses.replace(cfg.params, beta_scale=b)
+                for b in cfg.whatif_betas
+            ]
+            placement = backend.place_whatif(state, ctx, variants)
+        else:
+            placement = backend.place(state, ctx)
         algo_s = self._algo_s(placement.algo_s)
         self.metrics.algo_runtime_s.append(algo_s)
         self.metrics.rounds += 1
@@ -608,6 +755,7 @@ class Simulator:
                 # applied, and no migration metrics accrue (seed semantics).
                 return
             n_migrated = 0
+            mig = None
             if len(mover_ids):
                 mcols = cols[n_ready:]
                 cur = self.tt.machine[mover_ids]
@@ -633,6 +781,157 @@ class Simulator:
                 )
                 self.metrics.migrated_pct_per_round.append(pct)
                 obs.gauge("sim.migrated_pct", pct)
+            if ctrl_info is not None:
+                self._record_controller(
+                    ctrl_info["improvement"], ctrl_info["n_degraded"]
+                )
+                if mig is not None and n_migrated:
+                    # Hold down re-triggering while the moved jobs' perf
+                    # settles at the new placement.
+                    moved = np.unique(
+                        self.jt.job_id[self.tt.job[mover_ids[mig]]]
+                    )
+                    for j in moved:
+                        self.qos.migrated(int(j), float(t))
+
+    def _record_controller(self, improvement: float, n_degraded: int) -> None:
+        self.metrics.controller_improvement_per_round.append(float(improvement))
+        self.metrics.degraded_jobs_per_round.append(float(n_degraded))
+        self.metrics.controller_rounds += 1
+        obs.add("controller.rounds")
+        obs.gauge("sim.degraded_jobs", float(n_degraded))
+
+    def _controller_place(self, state, ctx, mover_ids, degraded, n_ready, t=0.0):
+        """One controller round: rank re-placement hypotheses, apply the
+        budgeted best.
+
+        Lane 0 freezes every mover (the no-migration baseline). The other
+        lanes are the cross product of candidate beta scales
+        (``whatif_betas``, defaulting to {0, configured beta}) and mover
+        subsets (all degraded jobs' movers; the worst half by QoS sample
+        when that is a strict subset). All lanes run through the backend's
+        what-if axis; outcomes charge frozen rows their stay cost so totals
+        are comparable. If no lane beats the baseline the round migrates
+        nothing — the controller never churns on noise. When the chosen
+        lane proposes more moves than ``migration_budget``, the
+        lowest-improvement moves are reverted (slot-safely) to fit.
+        """
+        cfg = self.cfg
+        T = state.n_tasks
+        M = state.n_machines
+        betas = list(
+            dict.fromkeys(cfg.whatif_betas or (0.0, cfg.params.beta_scale))
+        )
+        # Mover-subset masks over the round's task rows (ready rows always
+        # solve; only mover rows [n_ready:] are ever frozen).
+        all_movers = np.ones(T, bool)
+        frozen_all = all_movers.copy()
+        frozen_all[n_ready:] = False
+        subsets = [all_movers]
+        if len(degraded) > 1:
+            # Worst half of degraded jobs by last sample (lower = worse):
+            # a cheaper hypothesis when only part of the degradation is
+            # actionable.
+            worst = sorted(degraded, key=degraded.get)
+            worst = worst[: (len(worst) + 1) // 2]
+            mover_jobs = self.jt.job_id[self.tt.job[mover_ids]]
+            sub = all_movers.copy()
+            sub[n_ready:] = np.isin(mover_jobs, np.asarray(worst, np.int64))
+            if sub[n_ready:].any() and not sub[n_ready:].all():
+                subsets.append(sub)
+        variants = [cfg.params]  # lane 0: all movers frozen (params unused)
+        masks = [frozen_all]
+        for b in betas:
+            vp = dataclasses.replace(cfg.params, beta_scale=b)
+            for sub in subsets:
+                variants.append(vp)
+                masks.append(sub)
+        res, algo_s = self.backend.whatif_result(
+            state, ctx, variants, active_masks=np.stack(masks)
+        )
+        outcomes = res.lane_outcomes()
+        best = int(np.argmin(outcomes))
+        improvement = float(outcomes[0] - outcomes[best])
+        if improvement <= 0.0:
+            best, improvement = 0, 0.0
+        cols = res.assigned[best, :T].astype(np.int64)
+        # Frozen rows keep running where they are (col -1 == "no decision",
+        # which the mover-apply step treats as stay).
+        cols = np.where(masks[best], cols, -1)
+
+        mcols = cols[n_ready:]  # view into cols — reverts write through
+        cur = state.cur_machine[n_ready:]
+        moves = (mcols >= 0) & (mcols < M) & (mcols != cur)
+        n_moves = int(moves.sum())
+        n_proposed, n_reverts = n_moves, 0
+        if n_moves:
+            # Post-application slot balance: placed columns debit, movers
+            # staying put (unplaced columns) re-occupy their current slot.
+            placedc = cols[(cols >= 0) & (cols < M)]
+            free_after = state.free_slots.astype(np.int64) - np.bincount(
+                placedc, minlength=M
+            )
+            mkeep = ~((mcols >= 0) & (mcols < M))
+            if mkeep.any():
+                np.subtract.at(free_after, cur[mkeep], 1)
+            # Per-move true-cost improvement (stay minus move). The lane
+            # solve minimizes *jittered* cost, so it proposes zero-gain
+            # shuffles that churn tasks for nothing — and under a drifting
+            # plane a stale zero-gain move is a loss by the next sample.
+            # Revert non-improving moves first, then keep reverting
+            # lowest-improvement moves down to the budget.
+            imp = res.per_task_stay_cost[best, :T].astype(
+                np.int64
+            ) - res.per_task_true_cost[best, :T].astype(np.int64)
+            cand = np.nonzero(moves)[0]  # mover-row offsets
+            order = np.argsort(imp[n_ready + cand], kind="stable")
+            for off in cand[order]:
+                gain = int(imp[n_ready + off])
+                if gain > 0 and n_moves <= cfg.migration_budget:
+                    break  # ascending order: the rest improve and fit
+                c = int(cur[off])
+                # Revert only when the task's old slot is still free after
+                # everything else applies — never oversubscribe a machine
+                # whose reclaimed slot the solver already handed out.
+                if free_after[c] >= 1:
+                    free_after[c] -= 1
+                    free_after[mcols[off]] += 1
+                    cols[n_ready + off] = -1
+                    n_moves -= 1
+                    n_reverts += 1
+        if obs.enabled():
+            # Structured audit record: the controller's full decision for
+            # this round.
+            obs.add("controller.reverts", n_reverts)
+            obs.audit_event(
+                "controller_round",
+                t=float(t),
+                degraded_jobs={int(k): float(v) for k, v in degraded.items()},
+                lanes=[
+                    {
+                        "lane": k,
+                        "frozen_baseline": k == 0,
+                        "beta_scale": float(variants[k].beta_scale),
+                        "active_movers": int(masks[k][n_ready:].sum()),
+                        "true_cost": int(outcomes[k]),
+                    }
+                    for k in range(len(variants))
+                ],
+                chosen_lane=best,
+                improvement=float(improvement),
+                budget=int(cfg.migration_budget),
+                n_moves_proposed=n_proposed,
+                n_reverts=n_reverts,
+                n_moves_applied=n_moves,
+                algo_s=float(algo_s),
+            )
+        placement = Placement(
+            cols=cols, algo_s=algo_s, objective=int(outcomes[best])
+        )
+        return placement, {
+            "improvement": improvement,
+            "n_degraded": len(degraded),
+        }
 
     # ------------------------------------------------------------------ #
 
@@ -692,6 +991,8 @@ class Simulator:
             if self.straggler is not None and self.straggler.observe(j, sample):
                 self._straggler_jobs.add(j)
                 self.straggler.clear(j)
+            if self.qos is not None:
+                self.qos.observe(j, sample, float(t))
 
 
 def simulate(

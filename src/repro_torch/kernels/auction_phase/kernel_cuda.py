@@ -61,13 +61,17 @@ def max_ctas(device=None) -> int:
 
 def auction_phase_cuda(price0, values_m, value_u, job_col, active, eps: float,
                        max_iters: int, *, ctas: int | None = None,
-                       return_bidder_rows: bool = False):
+                       return_bidder_rows: bool = False, stats_on_device: bool = False):
     """(price (M, S) f32, owner (M, S) i32, assigned (Tp,) i32, iters int),
     as `ref.auction_phase_ref`; with ``return_bidder_rows`` a fifth value,
     the bidder rows summed over the iterations.
 
     ``ctas`` overrides the kernel's grid (a grid that cannot be co-resident
     is refused; a full grid on a small instance times the barriers).
+    ``stats_on_device`` leaves the counts on the card: ``iters`` (and the
+    bidder rows) come back as 0-dim int64 CUDA tensors and the call does not
+    wait for the kernel, so a caller that launches several solves reads all
+    their counts at once.
     """
     device = values_m.device
     if device.type != "cuda":
@@ -110,7 +114,10 @@ def auction_phase_cuda(price0, values_m, value_u, job_col, active, eps: float,
             f"({rc}; grid of {ctas} CTAs)"
         )
     auction_phase_cuda.launches += 1
-    iters, bidder_rows = stats.tolist()  # the one read of the launch's result
+    if stats_on_device:
+        iters, bidder_rows = stats[0], stats[1]
+    else:
+        iters, bidder_rows = stats.tolist()  # the one read of the launch's result
     out = (price, owner, assigned, iters)
     return out + (bidder_rows,) if return_bidder_rows else out
 

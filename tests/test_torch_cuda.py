@@ -266,6 +266,131 @@ def test_auction_phase_refuses_bad_inputs(cuda):
     assert kernel_cuda.auction_phase_cuda(*args, 1.0, 9)[3] > 0  # the card is still usable
 
 
+def test_auction_phase_stats_left_on_the_card(cuda):
+    """``stats_on_device`` returns the counts as CUDA tensors, equal to the
+    default call's host ints; the launch is counted once either way."""
+    from repro_torch import kernels
+    from repro_torch.kernels.auction_phase import kernel_cuda, ops
+
+    args = [torch.from_numpy(x).to(cuda) for x in _phase_instance(3, **_PHASE_CASES["round_8"])]
+    want = kernel_cuda.auction_phase_cuda(*args, 1.0, 500_000, return_bidder_rows=True)
+    kernels.reset_launch_counts()
+    got = kernel_cuda.auction_phase_cuda(*args, 1.0, 500_000, return_bidder_rows=True,
+                                         stats_on_device=True)
+    assert kernels.launch_counts()["auction_phase"] == 1
+    assert got[3].device.type == "cuda" and got[3].dim() == 0
+    assert int(got[3]) == want[3] and int(got[4]) == want[4]
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    it = ops.auction_phase(*args, 1.0, 500_000, iters_on_device=True)[3]
+    assert it.device.type == "cuda" and int(it) == want[3]
+
+
+def _migration_rounds(topo, R, seed, n_tasks=40, n_jobs=6):
+    from repro_torch.core import latency, policy
+
+    plane = latency.LatencyPlane.synthesize(topo, 8, seed=seed)
+    rng = np.random.default_rng(seed)
+    out = []
+    for r in range(R):
+        roots = rng.integers(0, topo.n_machines, size=n_jobs)
+        cur = np.full(n_tasks, -1, np.int64)
+        run_s = np.zeros(n_tasks, np.float32)
+        k = n_tasks // 3
+        cur[:k] = rng.integers(0, topo.n_machines, size=k)
+        run_s[:k] = rng.uniform(0, 7200, size=k)
+        out.append(policy.RoundState(
+            task_job=np.sort(rng.integers(0, n_jobs, size=n_tasks)),
+            perf_idx=rng.integers(0, 4, size=n_tasks), root_machine=roots,
+            root_latency=plane.latency_rows(roots, r), wait_s=rng.uniform(
+                0, 100, size=n_tasks).astype(np.float32), run_s=run_s, cur_machine=cur,
+            free_slots=rng.integers(0, 3, size=topo.n_machines).astype(np.int32)))
+    return out
+
+
+@pytest.mark.parametrize("chain", [False, True], ids=["exogenous", "chained"])
+def test_window_and_whatif_card_equal_cpu(cuda, chain):
+    """`place_window` and the what-if lanes on the card equal the CPU's,
+    with one auction_phase launch per round and per lane."""
+    from repro_torch import kernels
+    from repro_torch.core import policy, scheduler_backend, topology
+
+    topo = topology.google_topology(1536)
+    states = _migration_rounds(topo, 4, seed=5)
+    params = policy.PolicyParams(preemption=True, beta_scale=1.0)
+    variants = [params, policy.PolicyParams(preemption=True, beta_scale=0.0),
+                policy.PolicyParams(p_m=120, p_r=125, preemption=True)]
+    masks = np.ones((3, states[0].n_tasks), bool)
+    masks[0, states[0].n_tasks // 2:] = False
+    out = {}
+    for dev in ("cuda", "cpu"):
+        be = scheduler_backend.WindowedAuctionBackend(params, topo, device=dev)
+        kernels.reset_launch_counts()
+        win = be.place_window(states, chain=chain)
+        res, _ = be.whatif_result(states[0], None, variants, active_masks=masks)
+        out[dev] = (win, res, kernels.launch_counts())
+    (cw, cr, counts), (pw, pr, _) = out["cuda"], out["cpu"]
+    assert counts["auction_phase"] == len(states) + len(variants)
+    assert counts["costmap"] == len(states) + len(variants) and counts["auction_bid"] == 0
+    for a, b in zip(cw, pw):
+        assert np.array_equal(a.cols, b.cols) and a.objective == b.objective
+    for f in ("assigned", "iterations", "per_task_cost", "per_task_true_cost",
+              "per_task_stay_cost"):
+        assert np.array_equal(getattr(cr, f), getattr(pr, f)), f
+    assert np.array_equal(cr.lane_outcomes(), pr.lane_outcomes())
+
+
+def test_oracle_rows_on_the_card_equal_host_rows(cuda):
+    from repro_torch.core import latency, latency_device, topology
+
+    topo = topology.google_topology(1536)
+    ev = latency.LatencyEvents(
+        hotspots=(latency.DriftingHotspot(start_s=5.0, end_s=50.0, rack0=2,
+                                          drift_racks_per_s=0.5, width_racks=2,
+                                          multiplier=4.0),),
+        regime=latency.RegimeSchedule(times=(20.0, 40.0), frac=0.5))
+    plane = latency.LatencyPlane.synthesize(topo, 60, seed=3, events=ev)
+    oracle = latency_device.DeviceLatencyOracle(plane, device=cuda)
+    roots = np.random.default_rng(0).integers(0, topo.n_machines, size=37)
+    for t in (0, 5, 19, 20, 33, 40, 59):
+        got = oracle.root_rows(roots, t)
+        assert got.device.type == "cuda"
+        assert np.array_equal(got.cpu().numpy(), plane.latency_rows(roots, t)), t
+
+
+def test_small_controller_replay_card_equals_cpu(cuda):
+    """The controller with the oracle and what-if lanes on the card gives
+    the CPU's metrics, counters and audit events."""
+    from repro_torch import kernels, obs
+    from repro_torch.core import latency, scenarios, simulator, topology, workload
+
+    topo = topology.Topology(96, 8, 4, slots_per_machine=4)
+    scn = scenarios.get_scenario("drifting_hotspot")
+    plane = scn.plane(latency.LatencyPlane.synthesize(topo, 90, seed=2), 90)
+    wl = workload.synth_workload(topo, 90, seed=2, target_utilisation=0.5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = simulator.SimConfig(
+            backend="auction_windowed", device=dev, seed=3, fixed_algo_s=0.0,
+            params=scn.policy_params(p_m=105, p_r=110), migration_controller=True,
+            device_latency=True, whatif_betas=(0.0, 100.0 / 3600.0), qos_threshold=0.95,
+            qos_hold_s=30.0, **scn.sim_config_kwargs(topo, 90, 0))
+        kernels.reset_launch_counts()
+        with obs.scope() as tel:
+            m = simulator.Simulator(wl, plane, cfg).run()
+            audit = [{k: v for k, v in e.items() if k != "algo_s"} for e in tel.audit]
+            out[dev] = (m, obs.counters(), audit, kernels.launch_counts())
+    (a, ca, aa, counts), (b, cb, ab, _) = out["cuda"], out["cpu"]
+    assert a.controller_rounds > 0 and counts["auction_phase"] > 0
+    assert counts["auction_bid"] == 0
+    for f in ("tasks_placed", "tasks_migrated", "rounds", "placement_latency_s",
+              "response_time_s", "per_job_perf", "migrated_pct_per_round",
+              "controller_improvement_per_round", "degraded_jobs_per_round",
+              "controller_rounds"):
+        assert getattr(a, f) == getattr(b, f), f
+    assert ca == cb and aa == ab
+
+
 _ATT_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
 

@@ -36,6 +36,23 @@ def test_import_leaves_jax_and_reference_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_migration_path_imports_leave_jax_and_reference_out():
+    code = (
+        "import sys, repro_torch.core.round_program, repro_torch.core.latency_device\n"
+        "import repro_torch.core.scenarios\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
     re.MULTILINE,
