@@ -94,6 +94,42 @@ exits non-zero; nothing is caught):
               what-if calls' time, the oracle's stats (fails unless its
               floats per round are below M), peak device memory and
               avg_app_perf_area. Fails if ON ran no controller round.
+6d. mcmf_parity - the paper's Quincy flow network solved by successive
+              shortest paths (`MCMFBackend`, its Bellman-Ford as int32 torch
+              scatters on the card), 384 machines in the Google layout (8
+              racks of 48), 60 s, NoMora with preemption and migration every
+              30 s, fixed_algo_s = 0, on the card and on the CPU: every
+              SimMetrics series and summary() equal. Rounds, augmenting
+              paths, Bellman-Ford iterations, host syncs, solver.mcmf
+              seconds a round.
+6e. mcmf_round - one round of the full cluster (12,500 machines, the round
+              phase's synthetic state at 64 tasks) through the Quincy graph
+              and MCMF on the card and through the exact auction without
+              tie jitter: equal objectives, no machine over its free slots.
+              Nodes, arcs, graph-build seconds (host), augmentations,
+              iterations, solve seconds.
+6f. trace   - (a) a `synth_trace` cursor (3,600 s windows) at 1,536
+              machines, 60 s, with streaming metrics on the card and on the
+              CPU: summaries equal; the cursor with full SimMetrics equal to
+              `materialize(cursor)` on the card. (b) the committed Google
+              cluster-data v2 fixture through `CsvTraceCursor`, card against
+              CPU. (c) the `google_trace` scenario on the 12,500-machine
+              cluster, 90 s, measured algo_s: wall, sim.build_state, algo_s
+              p50 / p99 from the streaming quantiles, launches, peak device
+              memory and the host's ru_maxrss.
+6g. serving - (a) the `smoke` serving preset on the card with 8 rounds
+              recorded: `verify_replay` 0 mismatches and no kernel built or
+              loaded after warm-up; (b) a `ScheduleService` at 12,500
+              machines in the Google layout through `auction_windowed` and
+              the device latency oracle, 512-task batches, 60 s of arrivals
+              at 2 jobs/s (halved once if the queue does not drain): decision
+              latency p50 / p99 / mean (wall clock, measured, never
+              compared), round wall p50 / p99, busy fraction, queue peak,
+              and 0 builds or loads after warm-up (held).
+6h. sweep   - a 2-policy (nomora:auction, random) x 2-seed grid at 384
+              machines, 60 s, on the card: `run_sweep(workers=2)` (a spawn
+              pool, CUDA in each worker) and shards (0, 2) + (1, 2) merged
+              equal to one process's run, wall-clock fields dropped.
 7. attention_kernels - flash_attention and decode_attention against their
               plain versions on the card at the qwen3-0.6b serving shapes,
               in the dtypes the serving path gives them (f32 prefill;
@@ -175,7 +211,7 @@ exits non-zero; nothing is caught):
 Then a ``{"kernels": [...]}`` line (one entry per kernel: route, source,
 the TPU kernel it replaces, launches in the run of its main path - the
 full-width replay for the scheduler's kernels (with the dynamic ON and OFF
-replays' beside them), the qwen3-0.6b serve for
+replays' and phases 6d-6h's beside them), the qwen3-0.6b serve for
 the attention kernels (with the recurrentgemma serve's beside them), the
 recurrentgemma and rwkv6 serves for the scans - max abs error and
 tolerance, kernel / device / plain / bound / library times at the main
@@ -271,6 +307,10 @@ WINDOW_ROUNDS = 4
 DYNAMIC_SCENARIO = "drifting_hotspot"
 QOS = dict(qos_threshold=0.95, qos_window=2, qos_hold_s=30.0)
 WHATIF_BETAS = (0.0, 100.0 / 3600.0)
+# The rest of the scheduler: the MCMF replay's cluster (the Google layout,
+# 8 racks of 48) and the trace cursor's window.
+MCMF_PARITY_MACHINES = 384
+TRACE_WINDOW_S = 3600
 # Sources rebuilt on every run whose ptxas reports must show no spill.
 SPILL_GATED = ("flash_attention.cu", "decode_attention.cu", "rwkv6_scan.cu", "rglru_scan.cu",
                "auction_phase.cu")
@@ -1345,6 +1385,304 @@ def phase_dynamic(device="cuda", n_machines: int = 12_500, duration_s: int = 120
 
 
 # --------------------------------------------------------------------- #
+# The rest of the scheduler: MCMF, trace replay with streaming metrics,
+# the online ScheduleService, sweeps
+
+
+def _summary_diffs(a: dict, b: dict) -> list:
+    if a.keys() != b.keys():
+        return ["<keys>"]
+    return [k for k in a if not (a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])))]
+
+
+def _counted(fn):
+    """``fn()`` under fresh telemetry and launch counts: (its result, the
+    counters with host seconds by span name under "spans_s", the scheduler
+    kernels' launches)."""
+    from repro_torch import kernels, obs
+
+    with obs.scope() as tel:
+        kernels.reset_launch_counts()
+        out = fn()
+        launches = {k: kernels.launch_counts()[k] for k in SCHEDULER_KERNELS}
+        counters = obs.counters()
+        spans: dict = {}
+        for rec in tel.spans:
+            spans[rec.name] = spans.get(rec.name, 0.0) + rec.dur_ns * 1e-9
+    counters["spans_s"] = spans
+    return out, counters, launches
+
+
+def phase_mcmf_parity(device="cuda", n_machines: int = MCMF_PARITY_MACHINES,
+                      duration_s: int = 60) -> dict:
+    """The Quincy graph and MCMF (its Bellman-Ford on ``device``) in a
+    replay with preemption and migration every 30 s, card against CPU:
+    every SimMetrics series and summary() equal."""
+    from repro_torch.core.topology import google_topology
+
+    topo = google_topology(n_machines)
+    runs = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        (_, m, _, _), c, launches = _counted(
+            lambda dev=dev: replay(topo, duration_s, dev, backend="mcmf", fixed_algo_s=0.0))
+        runs[dev] = (m, time.perf_counter() - t0, c, launches)
+    (card, card_s, c, launches), (cpu, cpu_s, _, _) = runs[device], runs["cpu"]
+    diffs = [f for f in SERIES + SCALARS if getattr(card, f) != getattr(cpu, f)]
+    diffs += _summary_diffs(card.summary(), cpu.summary())
+    if diffs or card.rounds == 0:
+        raise AssertionError(f"mcmf_parity: card and CPU differ in {diffs} "
+                             f"(rounds {card.rounds})")
+    solver_s = c["spans_s"].get("solver.mcmf", 0.0)
+    info = {"phase": "mcmf_parity", "machines": n_machines, "duration_s": duration_s,
+            "rounds": card.rounds, "tasks_placed": card.tasks_placed,
+            "tasks_migrated": card.tasks_migrated,
+            "augmenting_paths": int(c.get("mcmf.augmentations", 0)),
+            "bf_iterations": int(c.get("mcmf.bf_iterations", 0)),
+            "host_syncs": int(c.get("mcmf.host_syncs", 0)),
+            "solver_mcmf_s": solver_s, "solver_mcmf_s_per_round": solver_s / card.rounds,
+            "card_wall_s": card_s, "cpu_wall_s": cpu_s, "launches": launches,
+            "equal": list(SERIES + SCALARS) + ["summary"]}
+    emit(info)
+    return info
+
+
+def phase_mcmf_round(device="cuda", n_machines: int = 12_500, n_tasks: int = 64,
+                     n_jobs: int = 19) -> dict:
+    """One full-cluster round (the round phase's synthetic state at
+    ``n_tasks``) through the paper's Quincy graph and MCMF on ``device``
+    and through the exact auction (no tie jitter): equal objectives, no
+    machine over its free slots."""
+    from repro_torch.core import flow_network, latency, mcmf, perf_model, scheduler_backend
+    from repro_torch.core.policy import dense_costs
+    from repro_torch.core.topology import google_topology
+
+    topo = google_topology(n_machines)
+    plane = latency.LatencyPlane.synthesize(topo, 4, seed=SEED)
+    state = full_width_round_state(topo, plane, n_tasks, n_jobs, 2, SEED)
+    params, lut = _policy(), perf_model.perf_lut_table()
+    ctx = scheduler_backend.RoundContext(rng=np.random.default_rng(SEED),
+                                         task_counts=np.zeros(n_machines, np.int64),
+                                         n_ready=n_tasks)
+    costs = dense_costs(state, topo, params, lut)
+    t0 = time.perf_counter()
+    g = flow_network.build_flow_graph(state, topo, params, costs)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (fr, c, _) = _counted(lambda: mcmf.min_cost_max_flow(
+        g.src, g.dst, g.cap, g.cost, g.source, g.sink, g.n_nodes, device=device))
+    solve_s = time.perf_counter() - t0
+    backend = scheduler_backend.MCMFBackend(params, topo, lut, device=device)
+    p_mcmf = backend.place(state, ctx)
+    exact = scheduler_backend.AuctionBackend(params, topo, lut, tie_jitter=0, exact=True,
+                                             device=device)
+    t0 = time.perf_counter()
+    (p_auc, ca, launches) = _counted(lambda: exact.place(state, ctx))
+    auction_s = time.perf_counter() - t0
+    if not (p_mcmf.objective == p_auc.objective == fr.total_cost
+            and fr.total_flow == n_tasks):
+        raise AssertionError(f"mcmf_round: objectives {p_mcmf.objective} (mcmf) vs "
+                             f"{p_auc.objective} (exact auction), flow {fr.total_flow}")
+    for name, p in (("mcmf", p_mcmf), ("auction", p_auc)):
+        on = p.cols[(p.cols >= 0) & (p.cols < n_machines)]
+        if (np.bincount(on, minlength=n_machines) > state.free_slots).any():
+            raise AssertionError(f"mcmf_round: {name} overfills a machine")
+    info = {"phase": "mcmf_round", "machines": n_machines, "tasks": n_tasks, "jobs": n_jobs,
+            "nodes": g.n_nodes, "arcs": int(len(g.src)), "graph_build_s": build_s,
+            "augmenting_paths": int(c.get("mcmf.augmentations", 0)),
+            "bf_iterations": int(c.get("mcmf.bf_iterations", 0)),
+            "host_syncs": int(c.get("mcmf.host_syncs", 0)), "solve_s": solve_s,
+            "objective": int(p_mcmf.objective), "exact_auction_s": auction_s,
+            "exact_auction_iterations": int(ca.get("auction.iterations", 0)),
+            "launches": launches, "objectives_equal": True}
+    emit(info)
+    return info
+
+
+def _trace_replay(topo, cursor, duration_s: int, device: str, **cfg):
+    from repro_torch.core import latency, simulator
+
+    plane = latency.LatencyPlane.synthesize(topo, duration_s, seed=SEED)
+    config = simulator.SimConfig(policy="nomora", seed=SEED, device=device, **cfg)
+    sim = simulator.Simulator(cursor, plane, config)
+    t0 = time.perf_counter()
+    metrics = sim.run()
+    return sim, metrics, time.perf_counter() - t0
+
+
+def phase_trace(device="cuda", n_machines: int = 1536, duration_s: int = 60,
+                full_machines: int = 12_500, full_duration_s: int = 90) -> dict:
+    """(a) A `synth_trace` cursor with streaming metrics, card against CPU
+    (equal summaries), and the cursor's replay with full SimMetrics against
+    the replay of `materialize(cursor)`, both on the card (equal series);
+    (b) the committed cluster-data v2 fixture through `CsvTraceCursor`,
+    card against CPU; (c) the `google_trace` scenario at the full cluster
+    on the card: wall, sim.build_state, algo_s quantiles from the streaming
+    metrics, memory."""
+    import resource
+
+    import torch
+
+    from repro_torch.core import scenarios, trace
+    from repro_torch.core.metrics_stream import StreamingSimMetrics
+    from repro_torch.core.topology import google_topology
+
+    topo = google_topology(n_machines)
+    cur = trace.synth_trace(topo, duration_s, seed=SEED, target_utilisation=0.6,
+                            window_s=TRACE_WINDOW_S)
+    kw = dict(fixed_algo_s=0.0, params=_policy(), migration_interval_s=30)
+    walls, summaries = {}, {}
+    for dev in (device, "cpu"):
+        _, m, walls[dev] = _trace_replay(topo, cur, duration_s, dev, streaming_metrics=True,
+                                         **kw)
+        if not isinstance(m, StreamingSimMetrics) or m.tasks_placed == 0:
+            raise AssertionError("trace: the streamed replay placed nothing")
+        summaries[dev] = m.summary()
+    diffs = _summary_diffs(summaries[device], summaries["cpu"])
+    _, streamed, _ = _trace_replay(topo, cur, duration_s, device, **kw)
+    _, mat, _ = _trace_replay(topo, trace.materialize(cur), duration_s, device, **kw)
+    diffs += [f"materialized.{f}" for f in SERIES + SCALARS
+              if getattr(streamed, f) != getattr(mat, f)]
+    fixture = ROOT / "tests" / "data" / "task_events_fixture.csv.gz"
+    fx_topo = google_topology(96)
+    fx, fx_jobs = {}, 0
+    for dev in (device, "cpu"):
+        csv = trace.CsvTraceCursor(topo=fx_topo, duration_s=120, paths=(str(fixture),))
+        fx_sim, fx[dev], _ = _trace_replay(fx_topo, csv, 120, dev, fixed_algo_s=0.0)
+        fx_jobs = fx_sim.jt.n
+    diffs += [f"fixture.{f}" for f in SERIES + SCALARS
+              if getattr(fx[device], f) != getattr(fx["cpu"], f)]
+    if diffs or fx[device].tasks_placed == 0:
+        raise AssertionError(f"trace: card and CPU (or streamed and materialized) differ "
+                             f"in {diffs}")
+    # (c) the paper's cluster on the google_trace scenario, measured algo_s.
+    gt = scenarios.get_scenario("google_trace")
+    full_topo = google_topology(full_machines)
+    gcur = trace.synth_trace(full_topo, full_duration_s, seed=SEED, target_utilisation=0.6,
+                             **gt.trace_kwargs)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    (sim, m, wall), c, launches = _counted(lambda: _trace_replay(
+        full_topo, gcur, full_duration_s, device,
+        **gt.sim_config_kwargs(full_topo, full_duration_s, SEED)))
+    s = m.summary()
+    if not (isinstance(m, StreamingSimMetrics) and m.rounds > 0 and m.tasks_placed > 0
+            and np.isfinite(s["algo_runtime_s_p99"])):
+        raise AssertionError("trace: the google_trace replay ran no rounds")
+    if device == "cuda" and not (launches["costmap"] > 0 and launches["auction_phase"] > 0
+                                 and launches["auction_bid"] == 0):
+        raise AssertionError(f"trace: google_trace launches {launches}")
+    info = {"phase": "trace",
+            "streamed": {"machines": n_machines, "duration_s": duration_s,
+                         "window_s": TRACE_WINDOW_S, "jobs": cur.n_jobs_hint,
+                         "tasks_placed": int(summaries[device]["tasks_placed"]),
+                         "card_wall_s": walls[device], "cpu_wall_s": walls["cpu"],
+                         "equal": ["summary", "streamed == materialized (SimMetrics)"]},
+            "fixture": {"jobs": fx_jobs, "tasks_placed": fx[device].tasks_placed,
+                        "equal": "SimMetrics"},
+            "google_trace": {
+                "machines": full_machines, "duration_s": full_duration_s,
+                "rounds": m.rounds, "tasks_placed": m.tasks_placed, "wall_s": wall,
+                "sim_build_state_s": c["spans_s"].get("sim.build_state", 0.0),
+                "solver_auction_s": c["spans_s"].get("solver.auction", 0.0),
+                "algo_s_p50": s["algo_runtime_s_p50"], "algo_s_p99": s["algo_runtime_s_p99"],
+                "algo_s_max": s["algo_runtime_s_max"],
+                "avg_app_perf_area": s["avg_app_perf_area"], "launches": launches,
+                "max_memory_allocated": (int(torch.cuda.max_memory_allocated())
+                                         if device == "cuda" else None),
+                "ru_maxrss_kb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}}
+    info["launches"] = launches
+    emit(info)
+    return info
+
+
+def phase_serving(device="cuda", n_machines: int = 12_500, rate_jobs_s: float = 2.0,
+                  horizon_s: int = 60) -> dict:
+    """(a) The ``smoke`` preset on the card, 8 rounds recorded: replayed
+    through a fresh per-round ``auction`` backend with 0 mismatches, and no
+    kernel built or loaded after warm-up; (b) a `ScheduleService` on the
+    paper's Google layout through ``auction_windowed`` and the device
+    latency oracle: wall-clock decision latency (measured, never compared),
+    the queue, and no kernel built or loaded after warm-up (the rate halves
+    once if the queue does not drain)."""
+    from repro_torch import obs
+    from repro_torch.core import scenarios, serving
+
+    smoke_cfg = serving.ServingConfig(**scenarios.get_serving_preset("smoke").config_kwargs,
+                                      record_rounds=8, device=device)
+    with obs.scope():
+        smoke = serving.ScheduleService(smoke_cfg).run()
+    if not (smoke.replay_mismatches == 0 and smoke.jit_compiles_post_warmup == 0.0
+            and smoke.drained):
+        raise AssertionError(f"serving: smoke {smoke}")
+    rates, report = [], None
+    for rate in (rate_jobs_s, rate_jobs_s / 2):
+        cfg = serving.ServingConfig(
+            backend="auction_windowed", device_latency=True, n_machines=n_machines,
+            machines_per_rack=48, racks_per_pod=16, batch_tasks=512, horizon_s=horizon_s,
+            rate_jobs_s=rate, device=device)
+        report, c, launches = _counted(lambda cfg=cfg: serving.ScheduleService(cfg).run())
+        rates.append(rate)
+        if report.drained:
+            break
+    if not (report.drained and report.jit_compiles_post_warmup == 0.0):
+        raise AssertionError(f"serving: {report}")
+    if device == "cuda" and not (launches["auction_phase"] > 0
+                                 and launches["auction_bid"] == 0):
+        raise AssertionError(f"serving: launches {launches}")
+    info = {"phase": "serving",
+            "smoke": {"replay_mismatches": smoke.replay_mismatches,
+                      "compiles_post_warmup": smoke.jit_compiles_post_warmup,
+                      "tasks_placed": smoke.tasks_placed},
+            "machines": n_machines, "rates_tried": rates, **dataclasses.asdict(report),
+            "launches": launches, "spans_s": c["spans_s"]}
+    emit(info)
+    return info
+
+
+def phase_sweep(device="cuda", n_machines: int = 384, duration_s: int = 60) -> dict:
+    """A (policy x seed) grid: `run_sweep` with a 2-worker spawn pool (each
+    worker on the card) equal to one process, and shards (0, 2) + (1, 2)
+    merged equal to the single run, wall-clock fields dropped."""
+    from repro_torch.core import sweep
+
+    spec = sweep.SweepSpec(n_machines=n_machines, machines_per_rack=48, racks_per_pod=16,
+                           slots_per_machine=8, duration_s=duration_s,
+                           policies=("nomora:auction", "random"), seeds=(0, 1),
+                           fixed_algo_s=0.0)
+
+    def comparable(res):
+        d = res.to_jsonable()
+        d.pop("wall_s")
+        for cell in d["cells"]:
+            cell.pop("wall_s")
+        return json.dumps(d, sort_keys=True)
+
+    # Telemetry stays off: spawned workers would record none, and a cell's
+    # counters are part of its saved result.
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    single = sweep.run_sweep(spec, device=device)
+    launches = {k: kernels.launch_counts()[k] for k in SCHEDULER_KERNELS}
+    t0 = time.perf_counter()
+    pool = sweep.run_sweep(spec, workers=2, device=device)
+    pool_s = time.perf_counter() - t0
+    merged = sweep.merge_sweep_results(
+        [sweep.run_sweep(spec, shard=(i, 2), device=device) for i in range(2)])
+    if not comparable(single) == comparable(pool) == comparable(merged):
+        raise AssertionError("sweep: workers=2 or the merged shards differ from one run")
+    info = {"phase": "sweep", "machines": n_machines, "duration_s": duration_s,
+            "cells": len(single.cells), "wall_s": single.wall_s, "pool_wall_s": pool_s,
+            "merged_shards_wall_s": merged.wall_s, "launches": launches,
+            "avg_app_perf_area": {c.policy + f"/{c.seed}": c.summary["avg_app_perf_area"]
+                                  for c in single.cells},
+            "equal": ["workers=2", "shards (0, 2) + (1, 2)"]}
+    emit(info)
+    return info
+
+
+# --------------------------------------------------------------------- #
 # The LM serving path: attention kernels, full-width serve, parity
 
 
@@ -2088,10 +2426,11 @@ def _entry(name: str, main: dict, launches: int) -> dict:
 
 
 def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict, rec: dict,
-                 rec_served: dict) -> dict:
+                 rec_served: dict, rest: dict) -> dict:
     """One entry per kernel at its main shape; ``rec_served`` maps an arch
-    to its serve phase's output. The scheduler's kernels count their
-    launches in the full replay, with the dynamic replays' beside them."""
+    to its serve phase's output, ``rest`` the scheduler's later phases to
+    theirs. The scheduler's kernels count their launches in the full
+    replay, with the dynamic replays' and the later phases' beside them."""
     entries = []
     for name, rows in kern.items():
         main = next(r for r in rows if tuple(r["shape"]) == MAIN_SHAPE)
@@ -2099,7 +2438,8 @@ def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict,
                         "launches_by_phase": {
                             "full": full["launches"][name],
                             "dynamic_on": dynamic["on"]["launches"][name],
-                            "dynamic_off": dynamic["off"]["launches"][name]},
+                            "dynamic_off": dynamic["off"]["launches"][name],
+                            **{phase: out["launches"][name] for phase, out in rest.items()}},
                         "library_ms_null_because": NO_LIBRARY})
     gemma = rec_served["recurrentgemma-2b"]
     for name, rows in att.items():
@@ -2134,12 +2474,14 @@ def main() -> int:
     full = phase_full()
     phase_dynamic_parity()
     dynamic = phase_dynamic(full=full)
+    rest = {"mcmf_parity": phase_mcmf_parity(), "mcmf_round": phase_mcmf_round(),
+            "trace": phase_trace(), "serving": phase_serving(), "sweep": phase_sweep()}
     served = phase_serve()
     phase_serve_parity()
     rec_served = {arch: phase_serve(arch=arch, **kw) for arch, kw in RECURRENT_SERVES.items()}
     for arch in RECURRENT_SERVES:
         phase_recurrent_parity(arch)
-    emit(kernels_line(kern, full, dynamic, att, served, rec, rec_served))
+    emit(kernels_line(kern, full, dynamic, att, served, rec, rec_served, rest))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

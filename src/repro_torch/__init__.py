@@ -9,12 +9,13 @@ use (`repro_torch.kernels`).
 
 Layout:
   core/         topology, perf_model, latency, latency_device, workload,
-                policy, auction, round_program, scheduler_backend, engine,
-                metrics, scenarios, simulator
+                trace, policy, auction, flow_network, mcmf, round_program,
+                scheduler_backend, engine, metrics, metrics_stream,
+                scenarios, simulator, reference_sim, serving, sweep
   kernels/      costmap, auction_bid, auction_phase, attention, scans: kernel
                 wrapper + plain version + dispatch
   csrc/         the CUDA C++ sources, compiled for sm_90a by nvcc
-  obs/          telemetry spans and counters
+  obs/          telemetry spans and counters, Chrome-trace and audit export
   distributed/  straggler detection
   convert.py    reference objects -> port objects (duck-typed)
 

@@ -12,9 +12,9 @@
 
 `SimMetrics` keeps exact per-sample series (lists) — the reference for
 parity tests and small replays. At trace scale those series dominate peak
-RSS; the reference package's `metrics_stream.StreamingSimMetrics` is the
-bounded drop-in (same ``summary()`` schema); this package has not ported it
-yet, and ``SimConfig(streaming_metrics=True)`` raises here.
+RSS; select `metrics_stream.StreamingSimMetrics` instead (same mutation
+surface and ``summary()`` schema, bounded memory, documented quantile
+tolerance) via ``SimConfig(streaming_metrics=True)``.
 """
 
 from __future__ import annotations

@@ -4,6 +4,8 @@ Port of `repro.core.perf_model` (paper §3, Eqs. 2-5): each application has
 a piecewise model — constant 1.0 below a threshold latency, and a fitted
 polynomial above it. Predictions are discretised in 10 us steps into a
 (4, 101) float32 lookup table; costs follow §5.2, ``round(10/p) * 10``.
+`fit_perf_model` refits a model from measurements with SciPy's
+``curve_fit`` (§3.2), as the reference does.
 
 Bit-identity with the reference: the table is evaluated in float32 on the
 CPU with the powers written as repeated multiplies (``x*x``,
@@ -17,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 LATENCY_MIN_US = 0.0
@@ -131,3 +134,55 @@ def perf_to_cost(perf) -> torch.Tensor:
     p = torch.clamp(torch.as_tensor(perf, dtype=torch.float32), min=1e-6)
     inv = torch.ones_like(p) / p  # IEEE division on every device
     return (torch.round(inv * 10.0) * 10.0).to(torch.int32)
+
+
+def cost_from_latency(lut_table: torch.Tensor, model_idx, latency_us) -> torch.Tensor:
+    """Fused lookup + cost mapping; the plain version of kernels/costmap."""
+    return perf_to_cost(lookup_perf(lut_table, model_idx, latency_us))
+
+
+# --- Model fitting (the paper's SciPy curve_fit flow, §3.2) -----------------
+
+
+def fit_perf_model(
+    name: str,
+    latency_us: np.ndarray,
+    norm_perf: np.ndarray,
+    sigma: np.ndarray | None = None,
+    threshold_us: float = 40.0,
+    degree: int = 3,
+) -> PerfModel:
+    """Fit a PerfModel to experimental data via non-linear least squares.
+
+    Mirrors §3.2: normalise performance to baseline (caller), then
+    ``scipy.optimize.curve_fit`` a polynomial with the measurement standard
+    deviation as the ``sigma`` weighting parameter. Host code (float64).
+    """
+    from scipy.optimize import curve_fit  # local import: scipy optional path
+
+    latency_us = np.asarray(latency_us, dtype=np.float64)
+    norm_perf = np.asarray(norm_perf, dtype=np.float64)
+    mask = latency_us >= threshold_us
+
+    def poly(x, *coeffs):
+        return sum(c * x**k for k, c in enumerate(coeffs))
+
+    p0 = np.zeros(degree + 1)
+    p0[0] = 1.0
+    popt, _ = curve_fit(
+        poly,
+        latency_us[mask],
+        norm_perf[mask],
+        p0=p0,
+        sigma=None if sigma is None else np.asarray(sigma)[mask],
+    )
+    return PerfModel(name=name, threshold_us=threshold_us, coeffs=tuple(popt))
+
+
+def model_r2(model: PerfModel, latency_us: np.ndarray, norm_perf: np.ndarray) -> float:
+    """Coefficient of determination of ``model`` on the given data."""
+    pred = model.evaluate(latency_us).numpy()
+    y = np.asarray(norm_perf)
+    ss_res = float(np.sum((y - pred) ** 2))
+    ss_tot = float(np.sum((y - np.mean(y)) ** 2))
+    return 1.0 - ss_res / max(ss_tot, 1e-12)

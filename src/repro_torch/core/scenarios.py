@@ -12,10 +12,10 @@ which traces run hot) derives from the scenario seed, so a (policy x seed
 x scenario) cell is reproducible bit for bit, and the same name builds the
 same plane and config here and in the reference.
 
-Not ported yet: the reference's ``google_trace`` preset (a chunked
-trace-cursor replay with streaming metrics, ROADMAP module item M7) and
-its serving presets (``SERVING_PRESETS``, module item M9); asking for
-either raises NotImplementedError.
+The ``google_trace`` preset swaps the materialized workload for a chunked
+`trace.synth_trace` cursor with streaming metrics, the configuration the
+trace-scale (12,500-machine / 24h) replays run under. `SERVING_PRESETS`
+are the `serving.ServingConfig` bundles of the online service.
 """
 
 from __future__ import annotations
@@ -46,6 +46,10 @@ class Scenario:
     description: str
     # synth_workload overrides (e.g. target_utilisation).
     workload_kwargs: Mapping = dataclasses.field(default_factory=dict)
+    # When set, the cell's workload is a chunked `trace.synth_trace` cursor
+    # (streamed admission, no materialized job list) built with these
+    # kwargs (e.g. window_s) merged over the sweep's target_utilisation.
+    trace_kwargs: Optional[Mapping] = None
     # SimConfig field overrides (e.g. migration_interval_s).
     config_kwargs: Mapping = dataclasses.field(default_factory=dict)
     # PolicyParams field overrides (e.g. preemption).
@@ -249,22 +253,20 @@ SCENARIOS: Dict[str, Scenario] = {
             params_kwargs={"preemption": True, "beta_scale": 0.0},
             config_kwargs={"migration_interval_s": 15},
         ),
+        Scenario(
+            name="google_trace",
+            description=(
+                "chunked Google-trace replay: streamed job admission "
+                "(trace.synth_trace windows) + bounded streaming metrics"
+            ),
+            trace_kwargs={"window_s": 3600},
+            config_kwargs={"streaming_metrics": True},
+        ),
     )
 }
 
 
-#: Reference presets this package does not have yet, with the ROADMAP.md
-#: module-queue item that ports each.
-NOT_PORTED = {
-    "google_trace": "ROADMAP.md module queue item M7 (trace replay, streaming metrics)",
-}
-
-
 def get_scenario(name: str) -> Scenario:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"scenario {name!r} is not ported to repro_torch yet: {NOT_PORTED[name]}"
-        )
     try:
         return SCENARIOS[name]
     except KeyError:
@@ -273,15 +275,65 @@ def get_scenario(name: str) -> Scenario:
         ) from None
 
 
-def get_serving_preset(name: str):
-    """The reference's serving presets arrive with `core.serving`."""
-    raise NotImplementedError(
-        "serving presets are not ported to repro_torch yet: ROADMAP.md module "
-        "queue item M9 (serving and sweeps)"
+# --------------------------------------------------------------------- #
+# Serving presets (core.serving) — kept apart from SCENARIOS: sweep cells
+# replay a fixed workload, serving runs meter an open-loop arrival stream.
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingPreset:
+    """Named `serving.ServingConfig` kwargs bundle."""
+
+    name: str
+    description: str
+    config_kwargs: Mapping = dataclasses.field(default_factory=dict)
+
+
+SERVING_PRESETS: Dict[str, ServingPreset] = {
+    p.name: p
+    for p in (
+        ServingPreset(
+            name="smoke",
+            description="tiny cluster, seconds-long run (CI pin checks)",
+            config_kwargs={
+                "n_machines": 32,
+                "machines_per_rack": 8,
+                "racks_per_pod": 2,
+                "horizon_s": 30,
+                "rate_jobs_s": 0.5,
+                "batch_tasks": 64,
+                "max_drain_s": 120,
+            },
+        ),
+        ServingPreset(
+            name="steady",
+            description="64-machine cluster at a comfortably sub-saturation "
+            "rate (per-decision latency measurement)",
+            config_kwargs={
+                "n_machines": 64,
+                "horizon_s": 120,
+                "rate_jobs_s": 1.0,
+            },
+        ),
+        ServingPreset(
+            name="saturation",
+            description="base config for arrival-rate ladders "
+            "(serving.saturation_sweep picks the rates)",
+            config_kwargs={
+                "n_machines": 64,
+                "horizon_s": 90,
+                "queue_limit_tasks": 768,
+            },
+        ),
     )
+}
 
 
-def __getattr__(name: str):
-    if name == "SERVING_PRESETS":
-        get_serving_preset(name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def get_serving_preset(name: str) -> ServingPreset:
+    try:
+        return SERVING_PRESETS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown serving preset {name!r}; available: "
+            f"{sorted(SERVING_PRESETS)}"
+        ) from None

@@ -28,11 +28,11 @@ Backends in this package:
   what-if axis).
 - `RandomBackend` / `LoadSpreadingBackend` (``random``/``load_spreading``)
   — the paper §6.1 heuristics.
+- `MCMFBackend` (``mcmf``) — the paper-faithful Quincy flow network
+  (`flow_network`) solved by successive shortest paths (`mcmf`), its
+  Bellman-Ford on the device.
 - `RandomSolverBackend` / `SpreadSolverBackend` — Firmament-style
   baselines: fixed/load-derived costs through the auction engine.
-
-Not ported yet (it raises, naming its ROADMAP.md module-queue item):
-``mcmf`` (item 5, flow network + MCMF).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ import torch
 from repro_torch import obs
 from repro_torch.device import resolve_device
 
-from . import auction, perf_model
+from . import auction, flow_network, mcmf, perf_model
 from .policy import (
     INF_COST,
     MAX_MACHINE_COST,
@@ -579,21 +579,48 @@ class WindowedAuctionBackend(AuctionBackend):
         return res, clk.elapsed
 
 
+class MCMFBackend(SchedulerBackend):
+    """Paper-faithful Quincy flow network + SSP MCMF (the oracle solver):
+    host costs and graph, the Bellman-Ford on ``device``."""
+
+    name = "mcmf"
+    supports_migration = True
+    selects_movers = True
+    supports_serving = True  # no shape to pin
+
+    def __init__(self, params: PolicyParams, topo: Topology, lut_table=None, *,
+                 device="cuda"):
+        self.params = params
+        self.topo = topo
+        self.lut = perf_model.perf_lut_table() if lut_table is None else lut_table
+        self.device = resolve_device(device)
+
+    def place(self, state: RoundState, ctx: RoundContext) -> Placement:
+        costs = dense_costs(state, self.topo, self.params, self.lut)
+        with solver_clock("solver.mcmf") as clk:
+            g = flow_network.build_flow_graph(state, self.topo, self.params, costs)
+            fr = mcmf.min_cost_max_flow(
+                g.src, g.dst, g.cap, g.cost, g.source, g.sink, g.n_nodes,
+                device=self.device,
+            )
+            cols = flow_network.extract_assignment(g, fr.flow, state)
+        return Placement(
+            cols=np.asarray(cols, np.int64),
+            algo_s=clk.elapsed,
+            objective=int(fr.total_cost),
+        )
+
+
 BACKEND_NAMES = (
     "auction",
     "auction_windowed",
     "auction_host",
+    "mcmf",
     "random",
     "load_spreading",
     "random_solver",
     "spread_solver",
 )
-
-#: Reference backends this package does not have yet, with the ROADMAP.md
-#: module-queue item that ports each.
-NOT_PORTED = {
-    "mcmf": "ROADMAP.md module queue item 5 (flow network + MCMF)",
-}
 
 
 def make_backend(
@@ -619,10 +646,8 @@ def make_backend(
         return WindowedAuctionBackend(params, topo, lut_table, device=device)
     if name == "auction_host":
         return AuctionBackend(params, topo, lut_table, fused=False, device=device)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported to repro_torch yet: {NOT_PORTED[name]}"
-        )
+    if name == "mcmf":
+        return MCMFBackend(params, topo, lut_table, device=device)
     raise KeyError(f"unknown scheduler backend {name!r}; one of {BACKEND_NAMES}")
 
 

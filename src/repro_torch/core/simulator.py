@@ -19,17 +19,24 @@ backend's round goes through the costmap and auction_phase CUDA kernels.
 With ``fixed_algo_s`` set, `SimMetrics` are bit-identical to the
 reference's on the same workload and plane.
 
-Not ported yet: streaming metrics (setting ``streaming_metrics`` raises
-NotImplementedError) and trace cursors (the workload is a materialised
-`Workload`).
+Trace scale: the workload may be a cursor (`core.trace`), any object with
+``topo``, ``duration_s`` and a re-iterable ``jobs`` property that yields
+arrival-ordered `Job` records lazily; the SoA tables grow by doubling from
+the cursor's size hints. ``SimConfig(streaming_metrics=True)`` swaps
+`SimMetrics`' full series for the bounded
+`metrics_stream.StreamingSimMetrics` (same ``summary()`` schema, quantiles
+within ``metrics_stream.QUANTILE_RTOL``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Literal, Optional
+from typing import TYPE_CHECKING, Dict, List, Literal, Optional
 
 import numpy as np
+
+if TYPE_CHECKING:
+    from .metrics_stream import StreamingSimMetrics
 
 from repro_torch import obs
 from repro_torch.device import resolve_device
@@ -108,6 +115,7 @@ class MetricsConfig:
     `MigrationConfig` for the construction contract)."""
 
     streaming: bool = False
+    perf_reservoir_k: int = 0
     perf_sample_interval_s: int = 15
     fixed_algo_s: Optional[float] = None
 
@@ -138,9 +146,14 @@ class SimConfig:
     # response times include the round's algorithm runtime, so wall-clock
     # jitter leaks into the metrics; parity tests pin it (usually to 0.0).
     fixed_algo_s: float | None = None
-    # The reference's bounded streaming metrics: not ported yet, so setting
-    # it raises NotImplementedError (ROADMAP module item 7).
+    # Bounded-memory metrics (`metrics_stream.StreamingSimMetrics`) instead
+    # of exact `SimMetrics`: for trace-scale replays where the per-sample
+    # series dominate RSS. Same summary() schema; quantiles are estimates
+    # within metrics_stream.QUANTILE_RTOL.
     streaming_metrics: bool = False
+    # With streaming metrics, keep a bounded per-job reservoir of this many
+    # perf samples (0 = means only) for distributional spot checks.
+    perf_reservoir_k: int = 0
     # What-if migration (paper §7 "pick a better placement"): candidate
     # beta_scale values evaluated per migration/straggler round through the
     # backend's what-if axis; the variant whose placement has the lowest
@@ -193,6 +206,7 @@ class SimConfig:
             self.migration_budget = migration.budget
         if metrics is not None:
             self.streaming_metrics = metrics.streaming
+            self.perf_reservoir_k = metrics.perf_reservoir_k
             self.perf_sample_interval_s = metrics.perf_sample_interval_s
             self.fixed_algo_s = metrics.fixed_algo_s
 
@@ -216,6 +230,7 @@ class SimConfig:
         """The metrics knobs as one grouped (frozen) object."""
         return MetricsConfig(
             streaming=self.streaming_metrics,
+            perf_reservoir_k=self.perf_reservoir_k,
             perf_sample_interval_s=self.perf_sample_interval_s,
             fixed_algo_s=self.fixed_algo_s,
         )
@@ -226,7 +241,7 @@ class Simulator:
 
     def __init__(
         self,
-        workload,  # Workload (topo, duration_s, jobs)
+        workload,  # Workload, or a trace cursor (core.trace) streamed lazily
         plane: LatencyPlane,
         config: SimConfig,
     ):
@@ -234,24 +249,35 @@ class Simulator:
         self.topo = workload.topo
         self.plane = plane
         self.cfg = config
-        if config.streaming_metrics:
-            raise NotImplementedError(
-                "SimConfig.streaming_metrics is not ported to repro_torch yet "
-                "(ROADMAP.md module queue item 7)"
-            )
         self.device = resolve_device(config.device)
         self.rng = np.random.default_rng(config.seed)
-        self.metrics = SimMetrics()
+        if config.streaming_metrics:
+            from .metrics_stream import StreamingSimMetrics
+
+            self.metrics = StreamingSimMetrics(
+                reservoir_k=config.perf_reservoir_k, seed=config.seed
+            )
+        else:
+            self.metrics = SimMetrics()
         self.lut = perf_model.perf_lut_table()
         self.lut_np = self.lut.numpy()
 
         M = self.topo.n_machines
         self.free_slots = np.full(M, self.topo.slots_per_machine, np.int32)
         self.task_counts = np.zeros(M, np.int64)  # for load-spreading
-        self.tt = TaskTable(capacity=workload.n_tasks_total)
-        self.jt = JobTable(capacity=len(workload.jobs))
+        # Trace cursors carry size hints (tables grow on demand); a
+        # materialized Workload sizes the tables exactly, in one shot.
+        tcap = getattr(workload, "n_tasks_hint", None)
+        jcap = getattr(workload, "n_jobs_hint", None)
+        self.tt = TaskTable(
+            capacity=workload.n_tasks_total if tcap is None else tcap
+        )
+        self.jt = JobTable(
+            capacity=len(workload.jobs) if jcap is None else jcap
+        )
         # Sparse: only LM jobs carry an ml_arch label. Everything else a
-        # `jobs`-view record needs lives in the SoA tables.
+        # `jobs`-view record needs lives in the SoA tables, so a streamed
+        # replay retains no per-job Python objects.
         self._ml_arch: Dict[int, str] = {}  # dense job -> ml_arch
         self.pending_roots: np.ndarray = EMPTY_IDS  # root task ids, queue order
         self.pending: np.ndarray = EMPTY_IDS  # non-root task ids, queue order
@@ -355,7 +381,7 @@ class Simulator:
 
     # ------------------------------------------------------------------ #
 
-    def run(self) -> SimMetrics:
+    def run(self) -> "SimMetrics | StreamingSimMetrics":
         cfg = self.cfg
         duration = self.wl.duration_s
         jobs_iter = iter(self.wl.jobs)
@@ -975,6 +1001,21 @@ class Simulator:
         # mean over the run is bit-identical to the masked mean (same values,
         # order, dtype) at O(T) instead of O(jobs * T).
         contiguous = bool(np.all(jids[1:] >= jids[:-1]))
+        if (
+            contiguous
+            and self.straggler is None
+            and self.qos is None
+            and hasattr(self.metrics, "record_perf_bulk")
+        ):
+            # Streaming metrics: stay vectorized end to end — a Python loop
+            # over ~10^4 active jobs per sampling round is the scaling wall
+            # at trace size. reduceat sums differ from the exact slice means
+            # only in float association (within the documented tolerance).
+            uniq, starts = np.unique(jids, return_index=True)
+            sums = np.add.reduceat(perf.astype(np.float64), starts)
+            counts = np.diff(np.append(starts, len(jids)))
+            self.metrics.record_perf_bulk(uniq, sums / counts)
+            return
         if contiguous:
             uniq, starts = np.unique(jids, return_index=True)
             bounds = np.append(starts, len(jids))
@@ -996,8 +1037,8 @@ class Simulator:
 
 
 def simulate(
-    workload,
+    workload,  # Workload, or a trace cursor (core.trace) streamed lazily
     plane: LatencyPlane,
     config: SimConfig,
-) -> SimMetrics:
+) -> "SimMetrics | StreamingSimMetrics":
     return Simulator(workload, plane, config).run()

@@ -9,6 +9,11 @@ time: the first launch builds what it needs, and `build_all` builds several
 sources at once (one nvcc process each, started together); `build_copies`
 builds edited copies of them the same way (the tools' tile sweeps and
 probed kernels).
+
+These builds and loads are the package's compiles: each nvcc build of a
+source and each library loaded into the process adds one to the
+``jit.backend_compiles`` counter of `repro_torch.obs` (a library already
+loaded adds nothing), which the serving loop's warm-path gate reads.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Tuple
+
+from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -84,6 +91,7 @@ def build_all(sources: Iterable[str]) -> Dict[str, str]:
     logs, errors = {}, []
     for src, out, tmp, proc in started:
         log, _ = proc.communicate()
+        obs.add("jit.backend_compiles")
         logs[src] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
@@ -104,6 +112,7 @@ def load(source: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     if lib is None:
         build_all([source])
         lib = ctypes.CDLL(str(library_path(source)))
+        obs.add("jit.backend_compiles")
         bind(lib)
         _LIBS[source] = lib
     return lib
@@ -128,6 +137,7 @@ def build_copies(texts: Dict[str, str], subdir: str) -> Dict[str, Tuple[Path, st
     built = {}
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
+        obs.add("jit.backend_compiles")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         built[name] = (lib, log)

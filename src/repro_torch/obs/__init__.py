@@ -1,8 +1,7 @@
 """`repro_torch.obs` — zero-cost-when-disabled scheduler telemetry.
 
-Port of `repro.obs` without the jax compile listener (``jit_compiles``)
-and, for now, without the Chrome-trace exporter. Public surface (all
-no-ops while disabled; enable with ``REPRO_OBS=1`` or `set_enabled(True)`):
+Port of `repro.obs`. Public surface (all no-ops while disabled; enable
+with ``REPRO_OBS=1`` or `set_enabled(True)`):
 
     from repro_torch import obs
 
@@ -10,7 +9,16 @@ no-ops while disabled; enable with ``REPRO_OBS=1`` or `set_enabled(True)`):
         ...
     obs.add("auction.iterations", iters)      # accumulating counters
     obs.gauge("sim.queue_depth", depth)       # timestamped gauge tracks
+    obs.audit_event("controller_round", ...)  # structured audit records
+
+    obs.export.save_chrome_trace("trace.json")        # open in Perfetto
+    obs.export.save_audit_jsonl("audit.jsonl")
+    obs.export.summarize()                            # benchmark sections
+
+``jit_compiles()`` counts kernel builds and library loads (`kernels.build`).
 """
+
+from . import export  # noqa: F401
 
 from .spans import (  # noqa: F401
     MAX_AUDIT_EVENTS,
@@ -27,6 +35,7 @@ from .spans import (  # noqa: F401
     enabled,
     gauge,
     get,
+    jit_compiles,
     record_span,
     reset,
     scope,
@@ -49,7 +58,9 @@ __all__ = [
     "counters",
     "counters_since",
     "deterministic_counters",
+    "jit_compiles",
     "scope",
+    "export",
     "NONDETERMINISTIC_PREFIXES",
     "MAX_SPANS",
     "MAX_TRACK_SAMPLES",

@@ -1,8 +1,7 @@
 """Thread-safe telemetry registry: nestable spans, counters, gauge tracks.
 
-The scheduler's measurement plane, ported from `repro.obs.spans` without
-the jax compile listener. One module-level `Telemetry`
-registry collects:
+The scheduler's measurement plane, ported from `repro.obs.spans`. One
+module-level `Telemetry` registry collects:
 
 - **spans** — nested wall-clock slices (``with obs.span("sim.round")``),
   recorded on exit as ``(name, t0_ns, dur_ns, depth, tid, args)``. Nesting
@@ -27,8 +26,13 @@ does not propagate; export ``REPRO_OBS=1`` for multi-process telemetry.
 
 Buffers are bounded (`MAX_SPANS` etc.); overflow increments
 ``dropped_spans`` / ``dropped_samples`` / ``dropped_audit`` rather than
-silently truncating. The Chrome-trace exporter (`repro.obs.export`) is
-not ported yet.
+silently truncating. `repro_torch.obs.export` maps the registry onto
+Chrome trace events.
+
+Compiles: this package's only compiles are kernel builds.
+`kernels/build.py` adds one to ``jit.backend_compiles`` for each nvcc
+build and for each library it loads into the process (never for one
+already loaded), so `jit_compiles` reads 0 growth on a warm path.
 """
 
 from __future__ import annotations
@@ -40,9 +44,8 @@ import time
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 #: Counter-name prefixes excluded from deterministic snapshots:
-#: process-warm-up accounting, not simulation work. None yet here (the
-#: reference's were its jax compile counters).
-NONDETERMINISTIC_PREFIXES: Tuple[str, ...] = ()
+#: process-warm-up accounting (kernel builds and loads), not simulation work.
+NONDETERMINISTIC_PREFIXES: Tuple[str, ...] = ("jit.",)
 
 # Buffer bounds: ~100 bytes/span puts a 7200-round replay (a handful of
 # spans + gauges per round) around 10 MB — far below the trace-scale RSS
@@ -291,6 +294,14 @@ def counters() -> Dict[str, float]:
 
 def counters_since(before: Dict[str, float]) -> Dict[str, float]:
     return _telemetry.counters_since(before)
+
+
+def jit_compiles() -> float:
+    """Current ``jit.backend_compiles`` count: kernel builds and library
+    loads (0.0 if telemetry is off or nothing was built or loaded).
+    Serving-mode warm-path gates snapshot this after warmup and assert it
+    stays flat."""
+    return _telemetry.counters_snapshot().get("jit.backend_compiles", 0.0)
 
 
 @contextlib.contextmanager

@@ -149,8 +149,7 @@ def test_windowed_with_oracle_equals_auction_with_host_rows(cluster):
 def test_scenario_planes_and_configs_equal_reference(cluster):
     base, _ = cluster
     topo = convert.from_reference(TOPO)
-    assert sorted(t_scenarios.SCENARIOS) == sorted(
-        n for n in r_scenarios.SCENARIOS if n != "google_trace")
+    assert sorted(t_scenarios.SCENARIOS) == sorted(r_scenarios.SCENARIOS)
     for name, scn in t_scenarios.SCENARIOS.items():
         ref = r_scenarios.SCENARIOS[name]
         assert scn.is_dynamic == ref.is_dynamic
@@ -165,14 +164,23 @@ def test_scenario_planes_and_configs_equal_reference(cluster):
 
 
 def test_unported_presets_raise():
-    with pytest.raises(NotImplementedError, match="M7"):
-        t_scenarios.get_scenario("google_trace")
-    with pytest.raises(NotImplementedError, match="M9"):
-        t_scenarios.SERVING_PRESETS  # noqa: B018
-    with pytest.raises(NotImplementedError, match="M9"):
-        t_scenarios.get_serving_preset("smoke")
+    """Formerly unported: ``google_trace`` and the serving presets now
+    equal the reference's; an unknown name still raises KeyError."""
+    gt, ref = t_scenarios.get_scenario("google_trace"), r_scenarios.get_scenario(
+        "google_trace")
+    assert (gt.description, dict(gt.trace_kwargs), dict(gt.config_kwargs)) == (
+        ref.description, dict(ref.trace_kwargs), dict(ref.config_kwargs))
+    assert gt.sim_config_kwargs(convert.from_reference(TOPO), DURATION, 3) == (
+        ref.sim_config_kwargs(TOPO, DURATION, 3))
+    assert sorted(t_scenarios.SERVING_PRESETS) == sorted(r_scenarios.SERVING_PRESETS)
+    for name, preset in t_scenarios.SERVING_PRESETS.items():
+        assert t_scenarios.get_serving_preset(name) is preset
+        assert dict(preset.config_kwargs) == dict(
+            r_scenarios.get_serving_preset(name).config_kwargs)
     with pytest.raises(KeyError):
         t_scenarios.get_scenario("nope")
+    with pytest.raises(KeyError):
+        t_scenarios.get_serving_preset("nope")
 
 
 @pytest.mark.parametrize(

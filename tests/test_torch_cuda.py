@@ -838,3 +838,88 @@ def test_small_recurrent_serve_card_equals_cpu(cuda, arch, prompt, tol):
         assert counts["decode_attention"] == kinds.count("local_attn") * 3
     np.testing.assert_array_equal(tokens, cpu_tokens)
     np.testing.assert_allclose(logits, cpu_logits, atol=tol, rtol=tol)
+
+
+# --- the rest of the scheduler on the card: MCMF, streamed replays, serving --
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_bellman_ford_card_equals_cpu(cuda, seed):
+    """int32 `amin` scatters on the card give the CPU's dist and parent,
+    unreachable nodes and negative-cost reverse arcs included."""
+    from repro_torch.core import mcmf
+
+    rng = np.random.default_rng(seed)
+    n, E = 400, 3000
+    src = rng.integers(0, n - 20, size=E)
+    dst = rng.integers(0, n - 20, size=E)
+    resid = rng.integers(0, 2, size=2 * E).astype(np.int32)
+    cost = rng.integers(0, 500, size=E)
+    src2 = np.concatenate([src, dst]).astype(np.int64)
+    dst2 = np.concatenate([dst, src]).astype(np.int64)
+    cost2 = np.concatenate([cost, -cost]).astype(np.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        args = [torch.from_numpy(a).to(dev) for a in (src2, dst2, cost2, resid)]
+        d, p, it, _reads = mcmf._bellman_ford(*args, 0, n)
+        out[str(dev)] = (d.cpu(), p.cpu(), it)
+    a, b = out.values()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
+
+
+def _scheduler_pair(streamed):
+    from repro_torch.core import latency, topology, trace, workload
+
+    topo = topology.Topology(n_machines=96, machines_per_rack=8, racks_per_pod=3,
+                             slots_per_machine=4)
+    plane = latency.LatencyPlane.synthesize(topo, duration_s=60, seed=1)
+    wl = (trace.synth_trace(topo, 60, seed=2, window_s=20) if streamed
+          else workload.synth_workload(topo, duration_s=60, seed=1, target_utilisation=0.6))
+    return wl, plane
+
+
+def test_mcmf_replay_card_equals_cpu(cuda):
+    from repro_torch.core import policy, simulator
+
+    wl, plane = _scheduler_pair(streamed=False)
+    runs = [simulator.Simulator(wl, plane, simulator.SimConfig(
+        policy="nomora", backend="mcmf", seed=5, fixed_algo_s=0.0, migration_interval_s=30,
+        params=policy.PolicyParams(preemption=True, beta_scale=0.0), device=dev)).run()
+        for dev in ("cpu", "cuda")]
+    assert runs[0].rounds > 0 and runs[0].tasks_migrated > 0
+    for f in ("placement_latency_s", "response_time_s", "migrated_pct_per_round",
+              "per_job_perf", "tasks_placed", "tasks_migrated", "rounds"):
+        assert getattr(runs[0], f) == getattr(runs[1], f), f
+
+
+def test_streamed_replay_card_equals_cpu(cuda):
+    import math
+
+    from repro_torch.core import simulator
+
+    cur, plane = _scheduler_pair(streamed=True)
+    runs = [simulator.Simulator(cur, plane, simulator.SimConfig(
+        policy="nomora", seed=5, fixed_algo_s=0.0, streaming_metrics=True,
+        device=dev)).run().summary() for dev in ("cpu", "cuda")]
+    assert runs[0].keys() == runs[1].keys() and runs[0]["tasks_placed"] > 0
+    for k in runs[0]:
+        assert runs[0][k] == runs[1][k] or (math.isnan(runs[0][k]) and math.isnan(runs[1][k]))
+
+
+def test_schedule_service_on_the_card_zero_compiles(cuda):
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.core import scenarios, serving
+
+    cfg = serving.ServingConfig(**scenarios.get_serving_preset("smoke").config_kwargs,
+                                record_rounds=8)
+    with obs.scope():
+        card = serving.ScheduleService(cfg)
+        rep = card.run()
+    assert rep.drained and rep.jit_compiles_post_warmup == 0.0
+    assert rep.replay_mismatches == 0
+    cpu = serving.ScheduleService(dataclasses.replace(cfg, device="cpu"))
+    cpu.run()
+    assert np.array_equal(card.sim.tt.machine[: card.sim.tt.n],
+                          cpu.sim.tt.machine[: cpu.sim.tt.n])

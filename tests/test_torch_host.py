@@ -113,3 +113,33 @@ def test_baseline_placements_stream_identical(n_machines, n_tasks, seed):
     got = t_policy.load_spreading_placement(counts, free, n_tasks)
     want = r_policy.load_spreading_placement(counts, free, n_tasks)
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("model", range(4))
+def test_cost_from_latency_equals_reference(model):
+    lat = np.asarray(BOUNDARY_US + [123.4, 650.0], np.float32)
+    got = t_perf.cost_from_latency(t_perf.perf_lut_table(), model, torch.from_numpy(lat))
+    want = np.asarray(r_perf.cost_from_latency(r_perf.perf_lut_table(), model, lat))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    # Monotone in latency (tests/test_perf_model.py's property, on a grid).
+    grid = torch.arange(0, 2000, 7, dtype=torch.float32)
+    c = t_perf.cost_from_latency(t_perf.perf_lut_table(), model, grid)
+    c50 = t_perf.cost_from_latency(t_perf.perf_lut_table(), model, grid + 50.0)
+    assert bool((c50 >= c).all())
+
+
+@pytest.mark.parametrize("sigma", [False, True])
+def test_fit_recovers_model_as_reference(sigma):
+    """Fitting the paper's own curve plus noise recovers it (Fig. 3), with
+    the reference's coefficients and R² on the same data."""
+    rng = np.random.default_rng(0)
+    x = np.arange(2, 1001, 10).astype(np.float64)
+    y = t_perf.MEMCACHED.evaluate(x).numpy() + rng.normal(0, 0.005, x.shape)
+    s = np.full(x.shape, 0.005) if sigma else None
+    fit = t_perf.fit_perf_model("refit", x, y, sigma=s, threshold_us=40.0)
+    ref = r_perf.fit_perf_model("refit", x, y, sigma=s, threshold_us=40.0)
+    assert fit.coeffs == ref.coeffs and fit.threshold_us == ref.threshold_us
+    truth = t_perf.MEMCACHED.evaluate(x[x >= 40]).numpy()
+    r2 = t_perf.model_r2(fit, x[x >= 40], truth)
+    assert r2 > 0.99
+    assert r2 == r_perf.model_r2(ref, x[x >= 40], truth)

@@ -53,6 +53,33 @@ def test_migration_path_imports_leave_jax_and_reference_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_scheduler_rest_imports_leave_jax_and_reference_out():
+    code = (
+        "import sys, repro_torch.core.flow_network, repro_torch.core.mcmf\n"
+        "import repro_torch.core.reference_sim, repro_torch.core.trace\n"
+        "import repro_torch.core.metrics_stream, repro_torch.core.serving\n"
+        "import repro_torch.core.sweep, repro_torch.obs.export\n"
+        "from repro_torch.core import perf_model; perf_model.fit_perf_model\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_reference_core_and_obs_module_has_a_counterpart():
+    for pkg in ("core", "obs"):
+        ref = {p.name for p in (ROOT / "src" / "repro" / pkg).glob("*.py")}
+        port = {p.name for p in (ROOT / "src" / "repro_torch" / pkg).glob("*.py")}
+        assert ref <= port, sorted(ref - port)
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
     re.MULTILINE,

@@ -26,8 +26,8 @@ def _replay_both(topo, duration_s, params_kw, **cfg_kw):
     plane = r_latency.LatencyPlane.synthesize(topo, duration_s=duration_s, seed=1)
     wl = r_workload.synth_workload(topo, duration_s=duration_s, seed=1,
                                    target_utilisation=0.6)
-    common = dict(policy="nomora", backend="auction", seed=5, fixed_algo_s=0.0,
-                  migration_interval_s=30, **cfg_kw)
+    common = {**dict(policy="nomora", backend="auction", seed=5, fixed_algo_s=0.0,
+                     migration_interval_s=30), **cfg_kw}
     ref = r_sim.Simulator(
         wl, plane, r_sim.SimConfig(params=r_policy.PolicyParams(**params_kw), **common)
     ).run()
@@ -69,14 +69,14 @@ def test_replay_failure_and_stragglers_matches_reference():
     _assert_equal(ref, port)
 
 
-# The first two cases are paths the port has not got yet (NotImplementedError);
-# the other four became code in the migration-path slice and now raise the
+# These four cases became code in the migration-path slice and raise the
 # reference's ValueError for a misconfiguration of that code, message for
-# message.
+# message. (The streaming-metrics and MCMF cases that raised
+# NotImplementedError here are ported now; their parity tests follow.)
 @pytest.mark.parametrize(
     "unported",
-    [dict(streaming_metrics=True), dict(whatif_betas=(0.0,)), dict(device_latency=True),
-     dict(migration_controller=True), dict(backend="mcmf"),
+    [dict(whatif_betas=(0.0,)), dict(device_latency=True),
+     dict(migration_controller=True),
      dict(backend="auction_windowed", migration_controller=True)],
 )
 def test_unported_paths_raise(unported):
@@ -85,10 +85,6 @@ def test_unported_paths_raise(unported):
     topo = topology.Topology(16, 8, 2, slots_per_machine=2)
     wl = workload.synth_workload(topo, 10, seed=0)
     plane = latency.LatencyPlane.synthesize(topo, 10, seed=0)
-    if "streaming_metrics" in unported or unported.get("backend") == "mcmf":
-        with pytest.raises(NotImplementedError):
-            t_sim.Simulator(wl, plane, t_sim.SimConfig(device="cpu", **unported))
-        return
     r_topo = r_topology.Topology(16, 8, 2, slots_per_machine=2)
     with pytest.raises(ValueError) as want:
         r_sim.Simulator(r_workload.synth_workload(r_topo, 10, seed=0),
@@ -97,3 +93,38 @@ def test_unported_paths_raise(unported):
     with pytest.raises(ValueError) as got:
         t_sim.Simulator(wl, plane, t_sim.SimConfig(device="cpu", **unported))
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("ported", [dict(streaming_metrics=True, perf_reservoir_k=3),
+                                    dict(backend="mcmf"), dict(solver="mcmf")])
+def test_formerly_unported_paths_match_reference(ported):
+    topo = r_topology.Topology(
+        n_machines=32, machines_per_rack=8, racks_per_pod=2, slots_per_machine=4
+    )
+    ref, port = _replay_both(topo, 60, dict(preemption=True, beta_scale=0.0),
+                             **{"backend": None, **ported})
+    assert ref.rounds > 0
+    a, b = ref.summary(), port.summary()
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])), k
+    if "streaming_metrics" not in ported:
+        _assert_equal(ref, port)
+
+
+# The re-anchor's scratch check, committed: the baseline backends and
+# policies at 40 machines, 60 s, every series, scalar and summary key equal.
+@pytest.mark.parametrize("cfg", [
+    dict(backend="auction_host"), dict(backend="random"),
+    dict(backend="load_spreading"), dict(backend="random_solver"),
+    dict(backend="spread_solver"), dict(backend=None, policy="random"),
+    dict(backend=None, policy="load_spreading"),
+], ids=["auction_host", "random", "load_spreading", "random_solver", "spread_solver",
+        "policy_random", "policy_load_spreading"])
+def test_baselines_match_reference(cfg):
+    topo = r_topology.Topology(
+        n_machines=40, machines_per_rack=8, racks_per_pod=5, slots_per_machine=4
+    )
+    ref, port = _replay_both(topo, 60, dict(preemption=True, beta_scale=0.0), **cfg)
+    assert ref.tasks_placed > 0
+    _assert_equal(ref, port)
