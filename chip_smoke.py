@@ -208,14 +208,52 @@ exits non-zero; nothing is caught):
               such steps on: rwkv6 re-rounds whole activation rows, its
               token shifts, at every step).
 
+14. grad_kernels - the training path's autograd Functions at a full-width
+              layer's shapes, f32: flash at qwen3-0.6b's (8, 16 / 8, 1,024,
+              128), RG-LRU at recurrentgemma-2b's (4, 2,048, 2,560), RWKV-6
+              at rwkv6-7b's (8, 64, 1,024, 64) in chunks of 256. Each
+              Function's gradients (and outputs) against plain autograd on
+              the same card tensors: flash and RG-LRU bit for bit (their
+              backward recomputes the plain version), RWKV-6 against its
+              chunked op run with the plain forward, within 1e-4 (its chunk
+              states come from the kernel); the kernel's launches per
+              forward (1, 1, 4); forward and backward ms (CUDA events) and
+              peak memory of the Function and of the plain version.
+15. train, train_recurrentgemma, train_rwkv - ``launch.train.main`` at full
+              width, f32, remat, depth cut inside this script
+              (``dataclasses.replace(cfg, n_layers=...)`` in place of
+              ``reduce_config``): qwen3-0.6b, all 28 layers, 8 x 1,024;
+              recurrentgemma-2b, one (rec, rec, local_attn) superblock and
+              its (rec, rec) remainder, 4 x 2,048; rwkv6-7b, 2 layers, 8 x
+              1,024. 4 steps with a checkpoint at step 2, then a run
+              resumed from that checkpoint alone to step 4: resumed losses
+              within rtol 1e-5 of the first run's, the restored state
+              byte-equal to the saved files, exact launches per step (2 for
+              each superblock layer that uses a kernel: forward and remat's
+              recompute; 1 for a remainder layer; RWKV-6 once per chunk of
+              256). Step seconds, losses, grad norms, tokens/s, checkpoint
+              save / wait / restore seconds, peak memory, and the card's
+              busy and idle share in one profiled step (CUDA trace).
+16. train_parity - each of the three at ``reduce_config(cfg, 8)`` (batch 2,
+              sequences of 128, 128 and 512: two RWKV-6 chunks), step 1's
+              gradients and 3 train steps on the card against the same on
+              the CPU from the same weights and data: losses within rtol
+              1e-4 at every step, every gradient leaf within 1e-3 *
+              max|leaf| + 1e-6, exact launches. AdamW with eps 1 there
+              (TRAIN_PARITY_ADAMW: at eps 1e-8 a first update is lr *
+              sign(g), which turns rounding differences on near-zero
+              gradients into full steps).
+
 Then a ``{"kernels": [...]}`` line (one entry per kernel: route, source,
 the TPU kernel it replaces, launches in the run of its main path - the
 full-width replay for the scheduler's kernels (with the dynamic ON and OFF
 replays' and phases 6d-6h's beside them), the qwen3-0.6b serve for
-the attention kernels (with the recurrentgemma serve's beside them), the
-recurrentgemma and rwkv6 serves for the scans - max abs error and
-tolerance, kernel / device / plain / bound / library times at the main
-shape) and, last, ``{"ok": true, "device": {...}}``.
+the attention kernels (with the recurrentgemma serve's and, for flash, the
+training phases' beside them), the recurrentgemma and rwkv6 serves for the
+scans (with the training phases' beside them), and for the three trained
+kernels their launches per train step and grad_kernels' numbers - max abs
+error and tolerance, kernel / device / plain / bound / library times at
+the main shape) and, last, ``{"ok": true, "device": {...}}``.
 
 Runs from a checkout (it imports ``src/repro_torch``); it needs no JAX and
 no network, and exits non-zero without a CUDA device.
@@ -226,6 +264,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -346,6 +385,29 @@ RGLRU_OPS = 8  # 2*la, expm1, negate, sqrt, exp, a*h, mult*gx, add
 # and an FMA w*S + kv (2); the bonus sum_i r_i u_i k_i v_j factors out as
 # v_j * c_t, one scalar per step and head.
 RWKV_OPS = 5
+# Training: each kernel's Function at a full-width layer's shapes (flash:
+# qwen3-0.6b's (B, H, KVH, S, D); RG-LRU: recurrentgemma-2b's (B, T, D) at
+# batch 4; RWKV-6: rwkv6-7b's (B, H, T, N) in chunks of 256), and the train
+# runs at full width, depth cut: (arch, layers, batch, seq).
+GRAD_SHAPES = {"flash_attention": (8, 16, 8, 1024, 128), "rglru_scan": (4, 2048, 2560),
+               "rwkv6_scan": (8, 64, 1024, 64)}
+GRAD_RWKV_CHUNK = 256
+TRAIN_RUNS = {
+    "train": ("qwen3-0.6b", 28, 8, 1024),
+    "train_recurrentgemma": ("recurrentgemma-2b", 5, 4, 2048),  # (rec, rec, local_attn) + (rec, rec)
+    "train_rwkv": ("rwkv6-7b", 2, 8, 1024),
+}
+TRAIN_STEPS, TRAIN_CKPT_AT = 4, 2
+TRAIN_RESUME_RTOL = 1e-5
+TRAIN_PARITY_SEQ = {"qwen3-0.6b": 128, "recurrentgemma-2b": 128, "rwkv6-7b": 512}
+TRAIN_PARITY_STEPS = 3
+TRAIN_PARITY_LOSS_RTOL = 1e-4
+# AdamW for the parity steps: eps = 1 keeps the update a smooth function of
+# the gradient (about lr * g). At eps = 1e-8 the first update is lr *
+# sign(g), and a rounding-level difference between the card's and the CPU's
+# gradient on a near-zero entry becomes a full step of lr: rwkv6's losses
+# then part by 5e-3 at step 3 though step 1's gradients agree.
+TRAIN_PARITY_ADAMW = dict(lr=0.3, eps=1.0)
 NO_SCAN_LIBRARY = (
     "no single PyTorch call computes either recurrence (a sequential scan "
     "whose decay depends on the data)"
@@ -2407,6 +2469,403 @@ def phase_recurrent_parity(arch: str, device="cuda", gen: int = 16) -> dict:
     return info
 
 
+# --------------------------------------------------------------------- #
+# Training: gradients through the kernels, full-width train steps
+
+
+def _grads(fn, inputs, cots):
+    """(outputs, gradients of the inputs) of ``fn`` under autograd, with the
+    cotangents ``cots`` (one per output)."""
+    import torch
+
+    ins = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    outs = out if isinstance(out, tuple) else (out,)
+    return [o.detach() for o in outs], list(torch.autograd.grad(outs, ins, cots))
+
+
+def _grad_times(fn, inputs, cots, reps: int) -> dict:
+    """Forward and backward ms (CUDA events, ``reps`` runs of one call) and
+    the peak memory of one forward + backward."""
+    import torch
+
+    ins = [t.detach().requires_grad_() for t in inputs]
+    fwd = time_ms(lambda: fn(*ins), reps=reps, per_rep=1, warmup=1)
+    out = fn(*ins)
+    outs = out if isinstance(out, tuple) else (out,)
+    bwd = time_ms(lambda: torch.autograd.grad(outs, ins, cots, retain_graph=True),
+                  reps=reps, per_rep=1, warmup=1)
+    del out, outs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn(*ins)
+    torch.autograd.grad(out if isinstance(out, tuple) else (out,), ins, cots)
+    torch.cuda.synchronize()
+    return {"forward_ms": fwd, "backward_ms": bwd,
+            "peak_bytes_over_inputs": int(torch.cuda.max_memory_allocated() - base)}
+
+
+def phase_grad_kernels() -> dict:
+    """Each kernel's autograd Function at a full-width layer's shapes: its
+    gradients against plain autograd on the same card tensors (flash and
+    RG-LRU bit for bit: their backward is the plain one; RWKV-6 against the
+    chunked op run with the plain forward, within the forward's tolerance:
+    its chunk states come from the kernel), the kernel's launches, and the
+    forward / backward ms and peak memory of both."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+    from repro_torch.kernels.rwkv6_scan import ops as rk_ops
+    from repro_torch.kernels.rwkv6_scan import ref as rk_ref
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+
+    def randn(shape, scale=1.0):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to("cuda")
+
+    B, H, KVH, S, D = GRAD_SHAPES["flash_attention"]
+    scale = 1.0 / D**0.5
+    fa_in = [randn((B, H, S, D)), randn((B, KVH, S, D)), randn((B, KVH, S, D))]
+    fa_cot = (randn((B, H, S, D)),)
+    B, T, Dr = GRAD_SHAPES["rglru_scan"]
+    rg_in = [-torch.from_numpy(rng.uniform(0.001, 2.0, (B, T, Dr)).astype(np.float32)).cuda(),
+             randn((B, T, Dr))]
+    rg_cot = (randn((B, T, Dr)), randn((B, Dr)))
+    B, Hr, T, N = GRAD_SHAPES["rwkv6_scan"]
+    rk_in = [randn((B, Hr, T, N)) for _ in range(3)]
+    rk_in += [torch.from_numpy(rng.uniform(0.2, 0.999, (B, Hr, T, N)).astype(np.float32)).cuda(),
+              randn((Hr, N), 0.5), randn((B, Hr, N, N), 0.1)]
+    rk_cot = (randn((B, Hr, T, N)), randn((B, Hr, N, N)))
+    chunk = GRAD_RWKV_CHUNK
+    cases = {
+        # name: (the op as the model calls it, plain autograd, inputs, cotangents,
+        #        launches of one forward, bit-equal?)
+        "flash_attention": (
+            lambda q, k, v: fa_ops.flash_attention(q, k, v, causal=True, scale=scale),
+            lambda q, k, v: fa_ref.attention_ref(q, k, v, causal=True, scale=scale),
+            fa_in, fa_cot, 1, True),
+        "rglru_scan": (lambda la, gx: rg_ops.rglru_scan(la, gx, None),
+                       lambda la, gx: rg_ref.rglru_scan_ref(la, gx, None),
+                       rg_in, rg_cot, 1, True),
+        "rwkv6_scan": (lambda *a: rk_ops.rwkv6_scan(*a, chunk=chunk),
+                       lambda *a: rk_ops.RWKV6Scan.apply(*a, chunk, rk_ref.rwkv6_scan_ref),
+                       rk_in, rk_cot, GRAD_SHAPES["rwkv6_scan"][2] // chunk, False),
+    }
+    out = {}
+    for name, (op, plain, inputs, cots, n_launch, exact) in cases.items():
+        before = kernels.launch_counts()[name]
+        got_out, got = _grads(op, inputs, cots)
+        launched = kernels.launch_counts()[name] - before
+        want_out, want = _grads(plain, inputs, cots)
+        if launched != n_launch:
+            raise AssertionError(f"{name}: the Function launched {launched} kernels, "
+                                 f"expected {n_launch}")
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        if exact and not bit_equal:
+            diffs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            raise AssertionError(f"{name}: Function gradients differ from plain autograd "
+                                 f"{diffs}")
+        tol = ATT_TOL["f32"] if name == "flash_attention" else SCAN_TOL[name]
+        err = max(_agree(f"{name} gradient", a, b, tol)["max_abs_err"]
+                  for a, b in zip(got + got_out, want + want_out))
+        del got, want, got_out, want_out
+        reps = 5 if name == "flash_attention" else 3
+        out[name] = {
+            "shape": list(GRAD_SHAPES[name]), "dtype": "f32",
+            **({"chunk": chunk} if name == "rwkv6_scan" else {}),
+            "launches_per_forward": launched, "bit_equal": bit_equal,
+            "max_abs_err": err, "tolerance": 0.0 if exact else tol,
+            "function": _grad_times(op, inputs, cots, reps),
+            "plain": _grad_times(plain, inputs, cots, reps),
+        }
+        torch.cuda.empty_cache()
+    info = {"phase": "grad_kernels",
+            "plain": {"flash_attention": "autograd through ref.attention_ref",
+                      "rglru_scan": "autograd through ref.rglru_scan_ref",
+                      "rwkv6_scan": "RWKV6Scan with ref.rwkv6_scan_ref as its forward"},
+            "kernels": out, "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    return info
+
+
+def _train_launches(cfg, seq: int) -> dict:
+    """Kernel launches of one train step with remat: the superblocks' layers
+    run forward and again in the backward's recompute (2 each), the
+    remainder layers once; flash for attention layers whose sequence fits
+    the window, the RWKV-6 scan once per chunk."""
+    from repro_torch.kernels.rwkv6_scan import ops
+
+    chunk = ops._chunk_div(seq, ops.DEFAULT_CHUNK)
+
+    def count(kinds):
+        return {"flash_attention": kinds.count("dense") + (
+                    kinds.count("local_attn") if seq <= cfg.local_window else 0),
+                "rglru_scan": kinds.count("rec"),
+                "rwkv6_scan": kinds.count("rwkv") * (seq // chunk)}
+
+    sb, rem = count(cfg.pattern * cfg.n_superblocks), count(cfg.remainder)
+    return {k: 2 * sb[k] + rem[k] for k in sb}
+
+
+def _train_profile(lm, batch, step_s: float) -> dict:
+    """The card's busy and idle share in one train step: a torch.profiler
+    trace (CUDA only: a CPU trace of the scans' per-step loops takes longer
+    to read than the step) of one step from fresh weights drawn on the
+    card; busy is the sum of the CUDA kernels' device time, against the
+    unprofiled step's host seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train import build_train_step
+
+    opt = AdamW(AdamWConfig())
+    state = opt.init(lm.init(torch.Generator(device="cuda").manual_seed(SEED), torch.float32))
+    step = build_train_step(lm, opt, remat=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+        wall = time.perf_counter() - t0
+    del state
+    busy, by_kernel, launches = 0.0, {}, 0
+    t0 = time.perf_counter()
+    for evt in prof.key_averages():
+        dev = getattr(evt, "device_time_total", 0.0) or 0.0
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA and dev > 0:
+            busy += dev / 1e3
+            by_kernel[evt.key] = dev / 1e3
+            launches += evt.count
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"profiled_wall_ms": wall * 1e3, "trace_read_s": time.perf_counter() - t0,
+            "device_busy_ms": busy or None,
+            "device_idle_share": (1.0 - busy / (step_s * 1e3)) if busy else None,
+            "kernels": launches, "top_kernels_ms": [[k[:80], v] for k, v in top]}
+
+
+def _timed_manager(timing: dict):
+    """`CheckpointManager` that records the seconds of its saves (the part
+    the training loop waits for), waits and restores, and holds each state
+    it restores byte-equal to the files it was read from (before training
+    updates it in place)."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+
+    class Manager(CheckpointManager):
+        def save(self, step, tree, blocking=False):
+            t0 = time.perf_counter()
+            super().save(step, tree, blocking=blocking)
+            timing["save_s"].append(time.perf_counter() - t0)
+
+        def wait(self):
+            t0 = time.perf_counter()
+            super().wait()
+            timing["wait_s"] += time.perf_counter() - t0
+
+        def restore(self, template, step=None, device=None, verify=True):
+            t0 = time.perf_counter()
+            state = super().restore(template, step=step, device=device, verify=verify)
+            timing["restore_s"] = time.perf_counter() - t0
+            step = self.latest_step() if step is None else step
+            d = Path(self.dir) / f"step_{step:08d}"
+            with open(d / "manifest.json") as f:
+                manifest = json.load(f)["leaves"]
+            n_bytes = 0
+            for (name, t), rec in zip(_flatten_with_paths(state), manifest):
+                saved = np.load(d / rec["file"])
+                if name != rec["name"] or not torch.equal(t.cpu(), torch.from_numpy(saved)):
+                    raise AssertionError(f"restored {name} differs from the saved {rec['name']}")
+                n_bytes += saved.nbytes
+            timing["restored_bytes_equal_saved"] = n_bytes
+            return state
+
+    return Manager
+
+
+def phase_train(phase: str, arch: str, n_layers: int, batch: int, seq: int,
+                device="cuda") -> dict:
+    """``launch.train.main`` at ``arch``'s full width with its depth cut to
+    ``n_layers`` (a ``dataclasses.replace`` in place of ``reduce_config``):
+    4 steps with a checkpoint at 2, then from that checkpoint alone steps 2
+    and 3 again. Asserts the kernels' launches per step, the resumed losses
+    against the first run's (rtol 1e-5: the embedding's gradient is an
+    atomic scatter on the card) and the state the resumed run restored
+    byte-equal to the files saved (their crc32 also checked against the
+    manifest). ``device="cpu"`` with small sizes rehearses the control flow
+    (no launches, no profile there)."""
+    import shutil
+
+    import torch
+
+    from repro_torch import configs, kernels
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import LM
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=n_layers)
+    lm = LM(cfg)
+    root = ROOT / "build" / f"ckpt_{phase}"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", arch, "--reduce", "1", "--steps", str(TRAIN_STEPS), "--batch", str(batch),
+            "--seq", str(seq), "--ckpt-every", str(TRAIN_CKPT_AT), "--log-every", "1",
+            "--device", device]
+    timing = {"save_s": [], "wait_s": 0.0}
+    patched = {"reduce_config": lambda c, factor: dataclasses.replace(c, n_layers=n_layers),
+               "CheckpointManager": _timed_manager(timing)}
+    saved = {name: getattr(train_mod, name) for name in patched}
+    for name, value in patched.items():
+        setattr(train_mod, name, value)
+    try:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        first = {}
+        t0 = time.perf_counter()
+        losses = train_mod.main(argv + ["--ckpt-dir", str(root / "a")], record=first)
+        first_run_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = int(torch.cuda.max_memory_allocated()) if on_card else None
+        os.makedirs(root / "b")
+        os.rename(root / "a" / f"step_{TRAIN_CKPT_AT:08d}", root / "b" / f"step_{TRAIN_CKPT_AT:08d}")
+        shutil.rmtree(root / "a")
+        t0 = time.perf_counter()
+        resumed_rec = {}
+        resumed = train_mod.main(argv + ["--ckpt-dir", str(root / "b"), "--resume"],
+                                 record=resumed_rec)
+        resume_run_s = time.perf_counter() - t0
+    finally:
+        for name, value in saved.items():
+            setattr(train_mod, name, value)
+        shutil.rmtree(root, ignore_errors=True)
+
+    want = {k: TRAIN_STEPS * v for k, v in _train_launches(cfg, seq).items()}
+    got = {k: launches[k] for k in want}
+    if on_card and got != want:
+        raise AssertionError(f"{phase} launches {got}, expected {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{phase}: non-finite losses {losses}")
+    loss_rel = np.abs(np.asarray(resumed) - losses[TRAIN_CKPT_AT:]) / np.abs(
+        losses[TRAIN_CKPT_AT:])
+    if not (loss_rel <= TRAIN_RESUME_RTOL).all():
+        raise AssertionError(f"{phase}: resumed losses {resumed} against {losses}")
+    if "restored_bytes_equal_saved" not in timing:
+        raise AssertionError(f"{phase}: the resumed run restored nothing")
+
+    steps_s = [r["s"] for r in first["steps"]]
+    step_s = float(np.median(steps_s[1:]))  # the first step includes library warm-up
+    profile = None
+    if on_card:
+        data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                          global_batch=batch))
+        tokens = torch.as_tensor(data.batch(0)["tokens"], device=device)
+        t0 = time.perf_counter()
+        profile = _train_profile(lm, {"tokens": tokens}, step_s)
+        profile["profile_s"] = time.perf_counter() - t0
+    info = {
+        "phase": phase, "arch": cfg.name,
+        "layers": cfg.n_layers, "pattern": list(cfg.pattern), "remainder": list(cfg.remainder),
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": first["n_params"],
+        "batch": batch, "seq": seq, "steps": TRAIN_STEPS, "remat": True,
+        "param_dtype": "float32", "allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+        "losses": losses, "resumed_losses": resumed,
+        "resumed_max_rel_diff": float(loss_rel.max()), "resume_rtol": TRAIN_RESUME_RTOL,
+        "grad_norms": [r["grad_norm"] for r in first["steps"]],
+        "step_s": steps_s, "step_ms": step_s * 1e3,
+        "tokens_per_s": batch * seq / step_s,
+        "resumed_step_s": [r["s"] for r in resumed_rec["steps"]],
+        "first_run_s": first_run_s, "resume_run_s": resume_run_s, "checkpoint": timing,
+        "launches": got, "launches_per_step": {k: v // TRAIN_STEPS for k, v in want.items()},
+        "max_memory_allocated": peak,
+        "step_profile": profile,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(info)
+    return info
+
+
+def _train_run(lm, params, batches, device):
+    """(per-step losses, step 1's gradients on the CPU) of TRAIN_PARITY_STEPS
+    steps of `build_train_step` from ``params``."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+    from repro_torch.train import build_train_step, loss_and_grads
+
+    cfg = AdamWConfig(**TRAIN_PARITY_ADAMW)
+    opt = AdamW(cfg, cosine_schedule(cfg.lr, warmup_steps=1, total_steps=len(batches)))
+    state = opt.init(tree_map(lambda t: t.to(device, copy=True), params))
+    on = [{k: v.to(device) for k, v in b.items()} for b in batches]
+    grads = tree_map(lambda g: g.cpu(), loss_and_grads(lm, state.params, on[0])[1])
+    step = build_train_step(lm, opt, remat=True)
+    losses = [float(step(state, b)[1]["loss"]) for b in on]
+    return losses, grads
+
+
+def phase_train_parity(device="cuda") -> dict:
+    """Each trained arch at ``reduce_config(cfg, 8)``: TRAIN_PARITY_STEPS
+    steps on the card against the same steps on the CPU, from the same
+    weights and data: losses within rtol 1e-4 at every step, every gradient
+    leaf of step 1 within 1e-3 * max|leaf| + 1e-6."""
+    import torch
+
+    from repro_torch import configs, kernels
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.optim.adamw import leaves
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, seq in TRAIN_PARITY_SEQ.items():
+        cfg = serve.reduce_config(configs.get_config(arch), 8)
+        lm = LM(cfg)
+        params = lm.init(torch.Generator().manual_seed(SEED), dtype=torch.float32)
+        data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                          global_batch=2, seed=SEED + 1))
+        batches = [{k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+                   for i in range(TRAIN_PARITY_STEPS)]
+        t0 = time.perf_counter()
+        cpu_losses, cpu_grads = _train_run(lm, params, batches, "cpu")
+        cpu_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses, grads = _train_run(lm, params, batches, device)
+        card_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        loss_rel = float(np.max(np.abs(np.subtract(losses, cpu_losses)) / np.abs(cpu_losses)))
+        worst = 0.0  # the largest |diff| / (1e-3 * max|leaf| + 1e-6) over the leaves
+        for a, b in zip(leaves(grads), leaves(cpu_grads)):
+            worst = max(worst, float((a - b).abs().max()) / (1e-3 * float(b.abs().max()) + 1e-6))
+        per_step = _train_launches(cfg, seq)
+        # step 1's gradients (one step's launches), then the steps
+        want = {k: v * (TRAIN_PARITY_STEPS + 1) for k, v in per_step.items()}
+        got = {k: launches[k] for k in want}
+        out[arch] = {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                                "vocab": cfg.vocab_size}, "batch": 2, "seq": seq,
+                     "losses": losses, "cpu_losses": cpu_losses, "max_loss_rel_diff": loss_rel,
+                     "loss_rtol": TRAIN_PARITY_LOSS_RTOL,
+                     "max_grad_diff_over_tolerance": worst, "launches": got,
+                     "card_s": card_s, "cpu_s": cpu_s}
+        if not (loss_rel <= TRAIN_PARITY_LOSS_RTOL and worst <= 1.0 and np.isfinite(losses).all()) \
+                or (device == "cuda" and got != want):
+            raise AssertionError(f"train parity failed for {arch} (launches expected {want}): "
+                                 f"{out[arch]}")
+    info = {"phase": "train_parity", "archs": out, "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    return info
+
+
 def _entry(name: str, main: dict, launches: int) -> dict:
     return {
         "name": name,
@@ -2425,12 +2884,29 @@ def _entry(name: str, main: dict, launches: int) -> dict:
     }
 
 
+def _training(name: str, grad: dict, trains: dict, parity: dict) -> dict:
+    """A trained kernel's launches in the training phases (the first run of
+    each: 4 steps) and its Function's forward / backward times."""
+    return {
+        "train_launches_by_phase": {
+            **{p: out["launches"][name] for p, out in trains.items()},
+            **{f"train_parity_{arch}": out["launches"][name]
+               for arch, out in parity["archs"].items()}},
+        "train_launches_per_step": {p: out["launches_per_step"][name]
+                                    for p, out in trains.items()},
+        "grad": {k: grad["kernels"][name][k]
+                 for k in ("shape", "bit_equal", "max_abs_err", "function", "plain")},
+    }
+
+
 def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict, rec: dict,
-                 rec_served: dict, rest: dict) -> dict:
+                 rec_served: dict, rest: dict, grad: dict, trains: dict, parity: dict) -> dict:
     """One entry per kernel at its main shape; ``rec_served`` maps an arch
     to its serve phase's output, ``rest`` the scheduler's later phases to
-    theirs. The scheduler's kernels count their launches in the full
-    replay, with the dynamic replays' and the later phases' beside them."""
+    theirs, ``trains`` the train phases to theirs. The scheduler's kernels
+    count their launches in the full replay, with the dynamic replays' and
+    the later phases' beside them; the LM kernels in their serve, with the
+    other serves' and the training phases' beside it."""
     entries = []
     for name, rows in kern.items():
         main = next(r for r in rows if tuple(r["shape"]) == MAIN_SHAPE)
@@ -2442,15 +2918,23 @@ def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict,
                             **{phase: out["launches"][name] for phase, out in rest.items()}},
                         "library_ms_null_because": NO_LIBRARY})
     gemma = rec_served["recurrentgemma-2b"]
+    trained = lambda name: _training(name, grad, trains, parity)  # noqa: E731
     for name, rows in att.items():
         # The dtypes the serving path uses; recurrentgemma-2b's shape after.
-        entries.append({
-            **_entry(name, rows[0], served["launches"][name]),
-            "launches_by_phase": {p["phase"]: p["launches"][name] for p in (served, gemma)},
-            "shapes": rows + rec[name],
-        })
+        entry = _entry(name, rows[0], served["launches"][name])
+        by_phase = {p["phase"]: p["launches"][name] for p in (served, gemma)}
+        if name == "flash_attention":
+            extra = trained(name)
+            by_phase.update(extra.pop("train_launches_by_phase"))
+            entry.update(extra)
+        entries.append({**entry, "launches_by_phase": by_phase, "shapes": rows + rec[name]})
     for name, arch in (("rglru_scan", "recurrentgemma-2b"), ("rwkv6_scan", "rwkv6-7b")):
-        entries.append({**_entry(name, rec[name][0], rec_served[arch]["launches"][name]),
+        extra = trained(name)
+        serve = rec_served[arch]
+        entries.append({**_entry(name, rec[name][0], serve["launches"][name]),
+                        "launches_by_phase": {serve["phase"]: serve["launches"][name],
+                                              **extra.pop("train_launches_by_phase")},
+                        **extra,
                         "library_ms_null_because": NO_SCAN_LIBRARY, "shapes": rec[name]})
     return {"kernels": entries}
 
@@ -2481,7 +2965,11 @@ def main() -> int:
     rec_served = {arch: phase_serve(arch=arch, **kw) for arch, kw in RECURRENT_SERVES.items()}
     for arch in RECURRENT_SERVES:
         phase_recurrent_parity(arch)
-    emit(kernels_line(kern, full, dynamic, att, served, rec, rec_served, rest))
+    grad = phase_grad_kernels()
+    trains = {phase: phase_train(phase, *run) for phase, run in TRAIN_RUNS.items()}
+    parity = phase_train_parity()
+    emit(kernels_line(kern, full, dynamic, att, served, rec, rec_served, rest, grad, trains,
+                      parity))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

@@ -1,6 +1,8 @@
 """Carry the reference package's state across to this package.
 
-`lm_params_from_reference` carries an LM's parameter pytree across.
+`lm_params_from_reference` carries an LM's parameter pytree across,
+`train_state_from_reference` an optimizer's `TrainState` (params, mu, nu,
+step).
 
 The scheduler has no weights; its state is the perf LUT, the `Topology`,
 the `PolicyParams`, the `LatencyPlane` (topology, series, seed, dynamic
@@ -154,3 +156,17 @@ def lm_params_from_reference(tree, lm=None):
             raise ValueError(f"reference parameters do not match {lm.cfg.name}: "
                              f"got {got}, expected {want}")
     return params
+
+
+def train_state_from_reference(state, lm=None):
+    """The port's `TrainState` from the reference's, read duck-typed by its
+    fields: params, mu and nu through `lm_params_from_reference` (checked
+    against ``lm`` when given), step as a 0-d int32 CPU tensor."""
+    from .optim import TrainState
+
+    return TrainState(
+        params=lm_params_from_reference(state.params, lm),
+        mu=lm_params_from_reference(state.mu, lm),
+        nu=lm_params_from_reference(state.nu, lm),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+    )

@@ -3,7 +3,9 @@
 Dispatch follows q's device and nothing else: a CPU tensor takes
 `ref.decode_attention_ref`, a CUDA tensor launches the kernel (or raises),
 anything else raises. There is no fallback from the kernel to the plain
-version.
+version. Decode takes no gradient: an input that requires grad (with grad
+mode on) raises on every device, as the reference never differentiates
+decode and the kernel's output would carry none.
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ def decode_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """(B,H,D) query vs (B,KVH,S,D) cache, (B,) valid lengths -> (B,H,D)."""
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k_cache, v_cache)
+    ):
+        raise RuntimeError("decode_attention takes no gradient: run decode under "
+                           "torch.no_grad() or on tensors that do not require grad")
     kind = q.device.type
     if kind == "cuda":
         return kernel_cuda.decode_attention_cuda(q, k_cache, v_cache, lengths, scale=scale)

@@ -9,7 +9,10 @@ input ``gx``, both computed by the caller:
 
 in float32, one step at a time. The sqrt(1 - a^2) normaliser is taken as
 sqrt(-expm1(2 log_a)) for stability at a ~ 1. Returns the (B, T, D) states
-in gx's dtype and the final (B, D) state in float32.
+in gx's dtype and the final (B, D) state in float32. The inputs are
+unbound and the states stacked, not indexed and written per step, so that
+autograd through this function (the backward of the kernel's op) moves no
+whole (B, T, D) buffer per step.
 """
 
 from __future__ import annotations
@@ -24,14 +27,13 @@ def rglru_scan_ref(
     gx: torch.Tensor,  # (B, T, D)
     h0: Optional[torch.Tensor] = None,  # (B, D)
 ):
-    B, T, D = log_a.shape
+    B, _, D = log_a.shape
     la = log_a.float()
     g = gx.float()
     h = (torch.zeros((B, D), dtype=torch.float32, device=la.device) if h0 is None
          else h0.float())
-    out = torch.empty((B, T, D), dtype=torch.float32, device=la.device)
-    for t in range(T):
-        la_t = la[:, t]
-        h = torch.exp(la_t) * h + torch.sqrt(-torch.expm1(2.0 * la_t)) * g[:, t]
-        out[:, t] = h
-    return out.to(gx.dtype), h
+    hs = []
+    for la_t, g_t in zip(la.unbind(1), g.unbind(1)):
+        h = torch.exp(la_t) * h + torch.sqrt(-torch.expm1(2.0 * la_t)) * g_t
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(gx.dtype), h

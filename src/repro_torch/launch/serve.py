@@ -41,7 +41,7 @@ def reduce_config(cfg, factor: int):
     """Scale a config down by ~factor in width/depth (CPU-runnable).
 
     A copy of `repro.launch.train.reduce_config`, kept here so that serving
-    pulls in no training module.
+    pulls in no training module; `repro_torch.launch.train` imports it.
     """
     if factor <= 1:
         return cfg

@@ -37,11 +37,12 @@ class Param:
         return (x * scale).to(dtype)
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a nested dict (a leaf is anything else)."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every leaf of a nested dict (a leaf is anything else),
+    with the matching leaves of the dicts in ``rest`` as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def init_params(specs: Dict[str, Any], generator: torch.Generator, dtype) -> Dict[str, Any]:

@@ -11,7 +11,8 @@ recurrentgemma-2b's 26 layers are 8 x (rec, rec, local_attn) and then
 
 API (functions over a params dict, like the reference's):
   init(generator, dtype)          -> params
-  forward(params, batch)          -> (B, S, V) float32 logits
+  forward(params, batch, remat)   -> (B, S, V) float32 logits
+  loss(params, batch, remat)      -> scalar (next-token CE, float32 logits)
   init_cache(batch, s_max)        -> decode cache (bf16 K/V by default)
   prefill(params, batch, s_max)   -> (last_logits, cache, lengths)
   decode_step(params, batch, cache, lengths) -> (logits, cache, lengths + 1)
@@ -21,8 +22,14 @@ each block kind writes its entries into the cache tensors it is handed,
 views of the stacked buffers (K/V at their slot, the local ring at
 ``len % w``, the rec block's ``h`` and ``conv``, the rwkv block's ``S``,
 ``shift`` and ``shift_c`` over their old values).
-``loss`` and ``remat`` come with the training slice; sharding constraints
-have no counterpart on one card.
+
+Training differentiates ``hidden_states`` with respect to the parameters.
+With ``remat`` each superblock runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: only its
+input is kept, and the backward recomputes it (the reference's
+``jax.checkpoint(nothing_saveable)`` around its scan body); the remainder
+layers run outside it, as in the reference. Sharding constraints have no
+counterpart on one card.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -77,26 +85,80 @@ class LM:
         return (x @ head).float()
 
     def _layers(self, params):
-        """Each superblock's parameters, {pattern key: block params}."""
+        """Each superblock's parameters, {pattern key: block params}: views
+        from one ``unbind`` of each stacked tensor, whose backward stacks the
+        layers' gradients once."""
+        per_layer = tree_map(lambda t: t.unbind(0), params["blocks"])
         for l in range(self.cfg.n_superblocks):
-            yield tree_map(lambda t: t[l], params["blocks"])
+            yield tree_map(lambda ts: ts[l], per_layer)
 
-    def hidden_states(self, params, batch):
+    def _superblock(self, x, layer_p, positions):
+        for i, kind in enumerate(self.cfg.pattern):
+            x, _ = blocks.apply_block_seq(kind, self.cfg, layer_p[f"pos{i}_{kind}"], x, positions)
+        return x
+
+    def hidden_states(self, params, batch, remat: bool = False):
         """(B, S) tokens -> (B, S, D) after the final norm."""
         cfg = self.cfg
         x = self._embed(params, batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         for layer_p in self._layers(params):
-            for i, kind in enumerate(cfg.pattern):
-                x, _ = blocks.apply_block_seq(kind, cfg, layer_p[f"pos{i}_{kind}"], x, positions)
+            if remat:
+                x = checkpoint(self._superblock, x, layer_p, positions, use_reentrant=False)
+            else:
+                x = self._superblock(x, layer_p, positions)
         for j, kind in enumerate(cfg.remainder):
             x, _ = blocks.apply_block_seq(kind, cfg, params[f"rem{j}_{kind}"], x, positions)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, remat: bool = False):
         """(B, S) tokens -> (B, S, V) float32 logits."""
-        return self._logits(params, self.hidden_states(params, batch))
+        return self._logits(params, self.hidden_states(params, batch, remat=remat))
+
+    LOSS_CHUNK = 2048  # sequence chunk of the CE block (memory bound)
+
+    def loss(self, params, batch, remat: bool = False):
+        """Mean next-token cross-entropy (float32 log-softmax).
+
+        The CE block runs over sequence chunks of ``LOSS_CHUNK`` (the whole
+        sequence where it is shorter or not a multiple), each chunk under
+        checkpoint when there are several: the (B, S, V) float32 logits
+        are never all live. The gold logit is a gather: the reference's
+        one-hot contraction gives the same value, every other term of its
+        sum being an exact zero, without a (B, C, V) one-hot.
+        """
+        h = self.hidden_states(params, batch, remat=remat)  # (B, S, D)
+        targets = batch["targets"] if "targets" in batch else batch["tokens"]
+        B, S, D = h.shape
+        # next-token shift with the final position masked out
+        tgt_next = torch.cat([targets[:, 1:], targets[:, :1]], dim=1).long()
+        # Materialised at (B, S), as the reference's NOTE requires: a (1, S)
+        # mask would count S - 1 positions instead of B * (S - 1).
+        pos_mask = (torch.arange(S, device=h.device) < S - 1)[None, :].expand(B, S)
+        mask = batch.get("mask")
+        if mask is not None:
+            pos_mask = torch.logical_and(pos_mask, mask.bool())
+
+        def ce_chunk(h_c, tgt_c, m_c):
+            logits = self._logits(params, h_c)  # (B, C, V) float32
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, tgt_c[..., None])[..., 0]
+            m = m_c.float()
+            return ((logz - gold) * m).sum(), m.sum()
+
+        chunk = min(self.LOSS_CHUNK, S)
+        if S % chunk:
+            chunk = S
+        if chunk == S:
+            total, count = ce_chunk(h, tgt_next, pos_mask)
+        else:
+            total = count = 0.0
+            for c in range(0, S, chunk):
+                t, n = checkpoint(ce_chunk, h[:, c : c + chunk], tgt_next[:, c : c + chunk],
+                                  pos_mask[:, c : c + chunk], use_reentrant=False)
+                total, count = total + t, count + n
+        return total / torch.clamp(count, min=1.0)
 
     # ------------------------------------------------------------- decode
 

@@ -923,3 +923,107 @@ def test_schedule_service_on_the_card_zero_compiles(cuda):
     cpu.run()
     assert np.array_equal(card.sim.tt.machine[: card.sim.tt.n],
                           cpu.sim.tt.machine[: cpu.sim.tt.n])
+
+
+# --------------------------------------------------------------------- training:
+# gradients through the kernels. Each op on CUDA tensors that require grad
+# launches its kernel in the forward and must give the plain path's
+# gradients (the backward recomputes the plain version); decode raises.
+
+
+def _grads_through(fn, inputs, cot):
+    ins = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    loss = sum((o * c).sum() for o, c in zip(out, cot)) if isinstance(out, tuple) \
+        else (out * cot).sum()
+    loss.backward()
+    return [t.grad for t in ins]
+
+
+def test_flash_backward_equals_plain_on_card(cuda):
+    from repro_torch.kernels.flash_attention import kernel_cuda, ops, ref
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, 4, 96, 64), device=cuda, generator=g)
+    k, v = (torch.randn((2, 2, 96, 64), device=cuda, generator=g) for _ in range(2))
+    cot = torch.randn(q.shape, device=cuda, generator=g)
+    before = kernel_cuda.flash_attention_cuda.launches
+    got = _grads_through(lambda *a: ops.flash_attention(*a), (q, k, v), cot)
+    assert kernel_cuda.flash_attention_cuda.launches == before + 1
+    want = _grads_through(lambda *a: ref.attention_ref(*a), (q, k, v), cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_rglru_backward_equals_plain_on_card(cuda):
+    from repro_torch.kernels.rglru_scan import kernel_cuda, ops, ref
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    la = -torch.rand((2, 70, 96), device=cuda, generator=g) * 2 - 1e-3
+    gx = torch.randn((2, 70, 96), device=cuda, generator=g)
+    h0 = torch.randn((2, 96), device=cuda, generator=g)
+    cot = (torch.randn(gx.shape, device=cuda, generator=g),
+           torch.randn((2, 96), device=cuda, generator=g))
+    before = kernel_cuda.rglru_scan_cuda.launches
+    got = _grads_through(lambda *a: ops.rglru_scan(*a), (la, gx, h0), cot)
+    assert kernel_cuda.rglru_scan_cuda.launches == before + 1
+    want = _grads_through(lambda *a: ref.rglru_scan_ref(*a), (la, gx, h0), cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_rwkv6_backward_equals_plain_on_card(cuda):
+    """The chunked op (3 chunks of 8) against plain autograd through the
+    whole scan: the chunk states come from the kernel (within the forward's
+    1e-4), the carried gradients sum in another order."""
+    from repro_torch.kernels.rwkv6_scan import kernel_cuda, ops, ref
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, H, T, N = 2, 3, 24, 32
+    r, k, v = (torch.randn((B, H, T, N), device=cuda, generator=g) for _ in range(3))
+    w = torch.rand((B, H, T, N), device=cuda, generator=g) * 0.8 + 0.199
+    u = torch.randn((H, N), device=cuda, generator=g) * 0.5
+    s0 = torch.randn((B, H, N, N), device=cuda, generator=g) * 0.1
+    cot = (torch.randn((B, H, T, N), device=cuda, generator=g),
+           torch.randn((B, H, N, N), device=cuda, generator=g))
+    before = kernel_cuda.rwkv6_scan_cuda.launches
+    got = _grads_through(lambda *a: ops.rwkv6_scan(*a, chunk=8), (r, k, v, w, u, s0), cot)
+    assert kernel_cuda.rwkv6_scan_cuda.launches == before + 3
+    want = _grads_through(lambda *a: ref.rwkv6_scan_ref(*a), (r, k, v, w, u, s0), cot)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_decode_attention_raises_under_grad_on_card(cuda):
+    from repro_torch.kernels.decode_attention import ops
+
+    q = torch.zeros((1, 2, 64), device=cuda, requires_grad=True)
+    cache = torch.zeros((1, 1, 16, 64), device=cuda)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.decode_attention(q, cache, cache, lengths)
+
+
+def test_small_train_step_card_equals_cpu(cuda):
+    """qwen3-0.6b and rwkv6-7b at reduce 8: one step's loss (rtol 1e-4) and
+    gradients on the card equal the CPU's, each leaf within 1e-3 (qwen3)
+    and 1e-2 (rwkv6) of its largest value. rwkv6's group norm divides each
+    head's outputs by their spread and enlarges rounding differences (its
+    logits already need 1e-3 where qwen3's need 1e-4,
+    tests/test_torch_lm_recurrent.py)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import loss_and_grads
+
+    for arch, S, tol in (("qwen3-0.6b", 64, 1e-3), ("rwkv6-7b", 64, 1e-2)):
+        lm = LM(serve.reduce_config(configs.get_config(arch), 8))
+        params = lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(0, lm.cfg.vocab_size, (2, S)))
+        cpu = loss_and_grads(lm, params, {"tokens": toks})
+        card = loss_and_grads(lm, tree_map(lambda t: t.to(cuda), params),
+                              {"tokens": toks.to(cuda)})
+        torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-4, atol=0)
+        for a, b in zip(leaves(card[1]), leaves(cpu[1])):
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=tol * float(b.abs().max()) + 1e-6)

@@ -73,6 +73,32 @@ def test_scheduler_rest_imports_leave_jax_and_reference_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_training_imports_leave_jax_and_reference_out():
+    code = (
+        "import sys, repro_torch.launch.train, repro_torch.optim, repro_torch.checkpoint\n"
+        "import repro_torch.train, repro_torch.data\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_reference_training_module_of_the_slice_has_a_counterpart():
+    for pkg, names in (("optim", ("adamw.py", "schedule.py")), ("data", ("pipeline.py",)),
+                       ("checkpoint", ("manager.py",)), ("train", ("steps.py",)),
+                       ("launch", ("train.py", "serve.py"))):
+        for name in names:
+            assert (ROOT / "src" / "repro" / pkg / name).exists(), (pkg, name)
+            assert (ROOT / "src" / "repro_torch" / pkg / name).exists(), (pkg, name)
+
+
 def test_every_reference_core_and_obs_module_has_a_counterpart():
     for pkg in ("core", "obs"):
         ref = {p.name for p in (ROOT / "src" / "repro" / pkg).glob("*.py")}
