@@ -207,6 +207,36 @@ exits non-zero; nothing is caught):
               the neighbouring bf16 step, and the recurrent states carry
               such steps on: rwkv6 re-rounds whole activation rows, its
               token shifts, at every step).
+13b. serve_dbrx, serve_llama4, serve_vlm - dbrx-132b (d_model 6,144, 48 / 8
+              heads of 128, 16 experts top-4 of d_ff 10,752, V 100,352),
+              llama4-scout-17b-a16e (5,120, 40 / 8, 16 experts top-1 and a
+              shared expert of d_ff 8,192, V 202,048) and
+              llama-3.2-vision-11b (4,096, 32 / 8, d_ff 14,336, V 128,256,
+              1,601 image tokens) at full width, depth cut: 2 MoE layers
+              each, and two (dense x 3, cross, dense) superblocks. Seeded
+              f32 parameters (the cross gates set to +-U(0.5, 1)), 8
+              requests of 1,024 prompt tokens, 64 generated greedily: the
+              MoE ones through ``serve_batch``, the VLM through
+              ``LM.prefill`` (with 8 x 1,601 seeded image embeddings) and
+              ``LM.decode_step`` (`generate`). Measures and checks as phase
+              8, plus the share of the prefill's (token, choice) pairs
+              dropped at capacity factor 1.25; launches exactly 2 flash and
+              2 * 63 decode (MoE), 8 flash (the dense layers) and 10 * 63
+              decode (the cross layers' against their 1,601-position image
+              cache); the first cross layer's decode call is checked too.
+13c. moe_vlm_parity - the three at reduce 8 (MoE at capacity factor 1.25,
+              pairs dropped; the VLM with 16 image tokens), gates and norm
+              scales drawn non-zero, 2 requests of 128 tokens, 16 generated,
+              card against CPU from the same parameters: logits within 2e-3
+              at every step, tokens equal, the same routed experts, tokens
+              and kept pairs in every MoE layer of the prefill, exact
+              launches; dbrx-132b served twice on the card, logits
+              bit-equal.
+13d. schedule - `launch/schedule.py`: NoMora places the ten LM jobs (192
+              machines, 12 jobs of 8 hosts, 300 s) on the card and on the
+              CPU with fixed_algo_s = 0: placements (roots, mesh orders)
+              and every SimMetrics series and summary() equal; costmap and
+              auction_phase launch on the card, auction_bid does not.
 
 14. grad_kernels - the training path's autograd Functions at a full-width
               layer's shapes, f32: flash at qwen3-0.6b's (8, 16 / 8, 1,024,
@@ -247,9 +277,9 @@ exits non-zero; nothing is caught):
 Then a ``{"kernels": [...]}`` line (one entry per kernel: route, source,
 the TPU kernel it replaces, launches in the run of its main path - the
 full-width replay for the scheduler's kernels (with the dynamic ON and OFF
-replays' and phases 6d-6h's beside them), the qwen3-0.6b serve for
-the attention kernels (with the recurrentgemma serve's and, for flash, the
-training phases' beside them), the recurrentgemma and rwkv6 serves for the
+replays' and phases 6d-6h's and 13d's beside them), the qwen3-0.6b serve for
+the attention kernels (with the recurrentgemma, MoE and VLM serves' and
+parities' and, for flash, the training phases' beside them), the recurrentgemma and rwkv6 serves for the
 scans (with the training phases' beside them), and for the three trained
 kernels their launches per train step and grad_kernels' numbers - max abs
 error and tolerance, kernel / device / plain / bound / library times at
@@ -270,6 +300,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -375,6 +406,20 @@ RECURRENT_SERVES = {
     "rwkv6-7b": dict(phase="serve_rwkv", requests=8, prompt_len=1024, gen=64),
 }
 RECURRENT_PARITY_PROMPT = {"recurrentgemma-2b": 160, "rwkv6-7b": 64}
+# The MoE and VLM serving paths at full width, depth cut for the run's time
+# limit: dbrx-132b and llama4-scout 2 MoE layers each, llama-3.2-vision
+# two (dense x 3, cross, dense) superblocks; then each at reduce 8, card
+# against CPU, and NoMora placing the ten LM jobs (launch/schedule.py).
+FAMILY_SERVES = {
+    "dbrx-132b": dict(phase="serve_dbrx", layers=2, requests=8, prompt_len=1024, gen=64),
+    "llama4-scout-17b-a16e": dict(phase="serve_llama4", layers=2, requests=8, prompt_len=1024,
+                                  gen=64),
+    "llama-3.2-vision-11b": dict(phase="serve_vlm", layers=10, requests=8, prompt_len=1024,
+                                 gen=64),
+}
+FAMILY_PARITY_PROMPT, FAMILY_PARITY_GEN = 128, 16
+FAMILY_REPEAT_ARCH = "dbrx-132b"  # served twice on the card: bit-equal logits
+SCHEDULE_RUN = (192, 12, 300)  # machines, jobs, seconds: schedule_ml_jobs' defaults
 SCAN_TOL = {"rglru_scan": 1e-5, "rwkv6_scan": 1e-4}
 RGLRU_SHAPES = ((8, 2048, 2560), (3, 1000, 2500))  # (B, T, D): prefill, ragged
 RWKV_SHAPE = (8, 64, 1024, 64)  # (B, H, T, N), prefill; decode at T = 1
@@ -2114,17 +2159,136 @@ class _Capture:
         return self.fn(*args, **kw)
 
 
+class _Routing:
+    """Wraps `blocks._moe_dispatch`: keeps, for the first ``n_prefill``
+    calls (a prefill's MoE layers), the sorted experts, their tokens and
+    the kept mask (device tensors, read after the run), then calls
+    through unchanged."""
+
+    def __init__(self, fn, n_prefill: int):
+        self.fn, self.n_prefill, self.n, self.calls = fn, n_prefill, 0, []
+
+    def __call__(self, cfg, router, xt):
+        buf, meta = self.fn(cfg, router, xt)
+        if self.n < self.n_prefill:
+            e_sorted, _, keep, _, tok_sorted, _ = meta
+            self.calls.append({"groups": buf.shape[0], "capacity": buf.shape[2],
+                               "experts": e_sorted, "tokens": tok_sorted, "keep": keep})
+        self.n += 1
+        return buf, meta
+
+    def routes(self) -> list:
+        """Per prefill call: (sorted experts, their tokens, kept mask), numpy."""
+        return [tuple(c[k].cpu().numpy() for k in ("experts", "tokens", "keep"))
+                for c in self.calls]
+
+    def prefill_drops(self) -> dict:
+        pairs = sum(c["keep"].numel() for c in self.calls)
+        dropped = sum(int((~c["keep"]).sum()) for c in self.calls)
+        first = self.calls[0] if self.calls else {}
+        return {"prefill_calls": len(self.calls), "groups": first.get("groups"),
+                "capacity_per_group": first.get("capacity"),
+                "prefill_pairs": pairs, "prefill_dropped": dropped,
+                "prefill_drop_share": dropped / pairs if pairs else None}
+
+
+def _set_gates(params, rng) -> list:
+    """Sets every cross layer's tanh gate (zero at init, which would hide
+    the cross path) to +-U(0.5, 1.0) from ``rng``; returns the values."""
+    import torch
+
+    got = []
+    for key, p in params["blocks"].items():
+        if key.endswith("_cross"):
+            g = p["attn"]["gate"]
+            vals = rng.choice([-1.0, 1.0], g.shape) * rng.uniform(0.5, 1.0, g.shape)
+            g.copy_(torch.from_numpy(vals.astype(np.float32)))
+            got += vals.ravel().tolist()
+    return got
+
+
+def _perturb_norms(params, rng) -> None:
+    """Adds 0.1 N(0, 1) from ``rng`` to every norm scale (zero at init), so
+    that the (1 + scale) paths are exercised."""
+    import torch
+
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif "norm" in k:
+                v.add_(torch.from_numpy((0.1 * rng.standard_normal(v.shape)).astype(np.float32))
+                       .to(v.device))
+
+    walk(params)
+
+
+def _images(cfg, batch: int, generator):
+    """Seeded N(0, 1) image embeddings (B, n_img, D) on the generator's
+    device for an arch with cross layers (the reference's stub of the
+    vision tower), else None."""
+    import torch
+
+    if not cfg.n_image_tokens:
+        return None
+    return torch.randn((batch, cfg.n_image_tokens, cfg.d_model), generator=generator,
+                       device=generator.device)
+
+
+def generate(lm, params, prompts, gen: int, images=None, *, timings: Optional[dict] = None,
+             return_logits: bool = False):
+    """Greedy serving of a batch: ``serve.serve_batch``; with ``images``,
+    for the VLM, whose ``serve_batch`` takes none (as the reference's), the
+    same prefill and decode loop through ``LM.prefill`` (the images in its
+    batch) and ``LM.decode_step``, with the same ``timings`` and outputs."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    if images is None:
+        return serve.serve_batch(lm, params, prompts, gen, timings=timings,
+                                 return_logits=return_logits)
+    device = params["embed"].device
+
+    def sync():
+        if timings is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    batch = {"tokens": torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=device),
+             "images": images}
+    logits, cache, lengths = lm.prefill(params, batch, s_max=prompts.shape[1] + gen)
+    out, seen = [serve.sample(logits)], [logits]
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache, lengths = lm.decode_step(params, {"tokens": out[-1][:, None].long()},
+                                                cache, lengths)
+        out.append(serve.sample(logits))
+        if return_logits:
+            seen.append(logits)
+    sync()
+    if timings is not None:
+        timings.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
+                       decode_steps=gen - 1)
+    tokens = torch.stack(out, dim=1).cpu().numpy()
+    if return_logits:
+        return tokens, torch.stack(seen, dim=1).float().cpu().numpy()
+    return tokens
+
+
 def _serve_launches(cfg, prompt_len: int, gen: int) -> dict:
     """Exact kernel launches of one ``serve_batch`` (prefill + gen - 1 decode
-    steps) on the card: flash once per attention layer whose prompt fits its
-    window (a longer prompt takes local attention's chunk-pair form),
-    decode once per attention layer and step, the RG-LRU scan once per rec
-    layer (its decode step is inline), the RWKV-6 scan once per rwkv layer
-    in prefill and in every step."""
+    steps) on the card: flash once per self-attention layer (dense, moe, and
+    local_attn where the prompt fits its window: a longer prompt takes the
+    chunk-pair form; a cross layer's prefill is a plain product), decode
+    once per attention layer and step (cross layers against their image
+    cache), the RG-LRU scan once per rec layer (its decode step is inline),
+    the RWKV-6 scan once per rwkv layer in prefill and in every step."""
     kinds = cfg.pattern * cfg.n_superblocks + cfg.remainder
-    n_attn = kinds.count("dense") + kinds.count("local_attn")
-    n_flash = kinds.count("dense") + (kinds.count("local_attn")
-                                      if prompt_len <= cfg.local_window else 0)
+    n_self = kinds.count("dense") + kinds.count("moe")
+    n_attn = n_self + kinds.count("local_attn") + kinds.count("cross")
+    n_flash = n_self + (kinds.count("local_attn") if prompt_len <= cfg.local_window else 0)
     return {"flash_attention": n_flash, "decode_attention": n_attn * (gen - 1),
             "rglru_scan": kinds.count("rec"), "rwkv6_scan": kinds.count("rwkv") * gen}
 
@@ -2140,10 +2304,15 @@ def _cache_bytes(cfg, batch: int, s_max: int) -> int:
 
 def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
                 prompt_len: int = SERVE_PROMPT, gen: int = SERVE_GEN, *,
-                arch: str = SERVE_ARCH, phase: str = "serve") -> dict:
-    """The serving run of ``arch``; ``device="cpu"`` and a larger ``reduce``
-    rehearse its control flow on the CPU (no launches, no kernel checks
-    there). The previous phase's tensors are freed first."""
+                arch: str = SERVE_ARCH, phase: str = "serve",
+                layers: Optional[int] = None) -> dict:
+    """The serving run of ``arch`` (depth cut to ``layers`` where given);
+    ``device="cpu"`` and a larger ``reduce`` rehearse its control flow on
+    the CPU (no launches, no kernel checks there). The previous phase's
+    tensors are freed first. An arch with cross layers (the VLM) gets
+    seeded image embeddings and non-zero gates and is served through
+    `generate`; an MoE arch reports the share of its prefill's (token,
+    choice) pairs that capacity dropped."""
     import torch
 
     from repro_torch import configs, kernels
@@ -2152,10 +2321,12 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rwkv6_scan import ops as rk_ops
     from repro_torch.launch import serve
-    from repro_torch.models import LM
+    from repro_torch.models import LM, blocks
 
     t_phase = time.perf_counter()
     cfg = serve.reduce_config(configs.get_config(arch), reduce)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     lm = LM(cfg)
     B, P, G = requests, prompt_len, gen
     on_card = device == "cuda"
@@ -2164,10 +2335,13 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
     tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
     if tf32:
         raise AssertionError("TF32 matmuls are on; the f32 projections must stay f32")
-    params = lm.init(torch.Generator(device=device).manual_seed(SEED), dtype=torch.float32)
+    gen_ = torch.Generator(device=device).manual_seed(SEED)
+    params = lm.init(gen_, dtype=torch.float32)
+    gates = _set_gates(params, np.random.default_rng(SEED))
+    images = _images(cfg, B, gen_)
     param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(B, P))
-    serve.serve_batch(lm, params, prompts[:, :64], 4)  # warm-up: cuBLAS, libraries
+    generate(lm, params, prompts[:, :64], 4, images)  # warm-up: cuBLAS, libraries
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2175,11 +2349,15 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
     want = _serve_launches(cfg, P, G)
     per_step = {"decode_attention": want["decode_attention"] // max(G - 1, 1),
                 "rwkv6_scan": want["rwkv6_scan"] // G}
+    kinds = cfg.pattern * cfg.n_superblocks + cfg.remainder
+    attn_kinds = [k for k in kinds if k in ("dense", "local_attn", "moe", "cross")]
+    decode_at = {0: "first_step", per_step["decode_attention"] * (G - 2): "last_step"}
+    if "cross" in attn_kinds:  # the first cross layer's call in the first step
+        decode_at[attn_kinds.index("cross")] = "cross_first_step"
     # (module, function, {call number: label}): layer 0's calls.
     caps = {
         "flash_attention": (fa_ops, "flash_attention", {0: "prefill"}),
-        "decode_attention": (dec_ops, "decode_attention", {
-            0: "first_step", per_step["decode_attention"] * (G - 2): "last_step"}),
+        "decode_attention": (dec_ops, "decode_attention", decode_at),
         "rglru_scan": (rg_ops, "rglru_scan", {0: "prefill"}),
         "rwkv6_scan": (rk_ops, "rwkv6_scan", {
             0: "prefill", per_step["rwkv6_scan"] * (G - 1): "last_step"}),
@@ -2187,14 +2365,16 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
     captures = {name: _Capture(getattr(mod, fn), at) for name, (mod, fn, at) in caps.items()}
     for name, (mod, fn, _) in caps.items():
         setattr(mod, fn, captures[name])
+    routing = blocks._moe_dispatch = _Routing(blocks._moe_dispatch, kinds.count("moe"))
     try:
         kernels.reset_launch_counts()
         timings = {}
-        tokens = serve.serve_batch(lm, params, prompts, G, timings=timings)
+        tokens = generate(lm, params, prompts, G, images, timings=timings)
         launches = kernels.launch_counts()
     finally:
         for name, (mod, fn, _) in caps.items():
             setattr(mod, fn, captures[name].fn)
+        blocks._moe_dispatch = routing.fn
     peak = int(torch.cuda.max_memory_allocated()) if on_card else None
     got = {k: launches[k] for k in want}
     if on_card and got != want:
@@ -2227,7 +2407,7 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
         raise AssertionError(f"{phase}: captured {sorted(captured)} for launches {want}")
     del captures, caps
     total_s = timings["prefill_s"] + timings["decode_s"]
-    profile = decode_profile(lm, params, prompts, G)
+    profile = decode_profile(lm, params, prompts, G, images=images)
     step_ms = timings["decode_s"] * 1e3 / timings["decode_steps"]
     if profile["device_busy_ms_per_step"] is not None:
         # Against the unprofiled step time of the run above.
@@ -2255,7 +2435,13 @@ def phase_serve(device="cuda", reduce: int = 1, requests: int = SERVE_REQUESTS,
         "tokens_head": tokens[:2, :8].tolist(),
         "phase_s": time.perf_counter() - t_phase,
     }
-    del params
+    if cfg.n_experts:
+        info["moe"] = {"experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+                       "shared_expert": cfg.shared_expert,
+                       "capacity_factor": cfg.moe_capacity_factor, **routing.prefill_drops()}
+    if images is not None:
+        info["vlm"] = {"image_tokens": cfg.n_image_tokens, "gates": gates}
+    del params, images
     emit(info)
     return info
 
@@ -2273,7 +2459,7 @@ def _kernel_calls(prof) -> dict:
     return {k: {"device_ms_per_call": ms / calls, "calls": calls} for k, (ms, calls) in got.items()}
 
 
-def decode_profile(lm, params, prompts, gen: int, steps: int = 4) -> dict:
+def decode_profile(lm, params, prompts, gen: int, steps: int = 4, images=None) -> dict:
     """Where a decode step's time goes: a torch.profiler trace (CPU and
     CUDA) of ``steps`` decode steps after a fresh prefill of the same
     prompts. Host wall per step against the card's busy time per step
@@ -2286,11 +2472,12 @@ def decode_profile(lm, params, prompts, gen: int, steps: int = 4) -> dict:
     device = params["embed"].device
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    tokens = torch.as_tensor(prompts, dtype=torch.long, device=device)
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=device)}
+    if images is not None:
+        batch["images"] = images
     pre = profile(activities=[ProfilerActivity.CUDA]) if on_card else contextlib.nullcontext()
     with pre:
-        logits, cache, lengths = lm.prefill(params, {"tokens": tokens},
-                                            s_max=prompts.shape[1] + gen)
+        logits, cache, lengths = lm.prefill(params, batch, s_max=prompts.shape[1] + gen)
         sync()
     prefill_kernels = _kernel_calls(pre) if on_card else None
     tok = logits.argmax(-1)[:, None]
@@ -2466,6 +2653,138 @@ def phase_recurrent_parity(arch: str, device="cuda", gen: int = 16) -> dict:
     emit(info)
     if not (ok and info["tokens_equal"]) or (device == "cuda" and got != want):
         raise AssertionError(f"{arch} parity failed (launches expected {want}): {info}")
+    return info
+
+
+def _routed(lm, params, prompts, gen: int, images, n_prefill: int):
+    """`generate` with its logits and the MoE routing of its prefill."""
+    from repro_torch.models import blocks
+
+    routing = blocks._moe_dispatch = _Routing(blocks._moe_dispatch, n_prefill)
+    try:
+        tokens, logits = generate(lm, params, prompts, gen, images, return_logits=True)
+    finally:
+        blocks._moe_dispatch = routing.fn
+    return routing, tokens, logits
+
+
+def phase_moe_vlm_parity(device="cuda") -> dict:
+    """dbrx-132b, llama4-scout and llama-3.2-vision at reduce 8 (MoE at
+    capacity factor 1.25: pairs are dropped; the VLM with seeded images),
+    gates and norm scales drawn non-zero, on the card against the CPU from
+    the same parameters: greedy tokens equal, logits within PARITY_TOL at
+    every step (the bf16 cache of serve_batch), the same routed experts,
+    tokens and kept pairs in every MoE layer of the prefill, exact
+    launches; FAMILY_REPEAT_ARCH served twice on the card, bit-equal."""
+    import torch
+
+    from repro_torch import configs, kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models.layers import tree_map
+
+    t_phase = time.perf_counter()
+    P, gen = FAMILY_PARITY_PROMPT, FAMILY_PARITY_GEN
+    out, failed = {}, []
+    for arch in FAMILY_SERVES:
+        cfg = serve.reduce_config(configs.get_config(arch), 8)
+        lm = LM(cfg)
+        rng = np.random.default_rng(SEED)
+        params = lm.init(torch.Generator().manual_seed(SEED), dtype=torch.float32)
+        _set_gates(params, rng)
+        _perturb_norms(params, rng)
+        images = _images(cfg, 2, torch.Generator().manual_seed(SEED + 1))
+        prompts = rng.integers(0, cfg.vocab_size, size=(2, P))
+        n_moe = (cfg.pattern * cfg.n_superblocks + cfg.remainder).count("moe")
+        t0 = time.perf_counter()
+        cpu_routing, cpu_tokens, cpu_logits = _routed(lm, params, prompts, gen, images, n_moe)
+        cpu_s = time.perf_counter() - t0
+        card = tree_map(lambda t: t.to(device), params)
+        card_images = None if images is None else images.to(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        routing, tokens, logits = _routed(lm, card, prompts, gen, card_images, n_moe)
+        card_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        want = {k: v for k, v in _serve_launches(cfg, P, gen).items()
+                if k in ("flash_attention", "decode_attention")}
+        got = {k: launches[k] for k in want}
+        max_diff, ok = _logit_diff(logits, cpu_logits)
+        routes_equal = all(np.array_equal(a, b) for ca, cb in
+                           zip(routing.routes(), cpu_routing.routes()) for a, b in zip(ca, cb))
+        info = {
+            "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                       "head_dim": cfg.head_dim, "n_experts": cfg.n_experts,
+                       "experts_per_token": cfg.experts_per_token,
+                       "capacity_factor": cfg.moe_capacity_factor,
+                       "n_image_tokens": cfg.n_image_tokens, "vocab": cfg.vocab_size},
+            "requests": 2, "prompt_len": P, "gen": gen,
+            "max_abs_logit_diff": max_diff, "max_abs_logit": float(np.abs(cpu_logits).max()),
+            "tolerance": PARITY_TOL,
+            "tokens_equal": bool((tokens == cpu_tokens).all()),
+            "routes_equal": routes_equal and len(routing.calls) == len(cpu_routing.calls),
+            "launches": got, "card_s": card_s, "cpu_s": cpu_s,
+        }
+        if n_moe:
+            info["moe"] = cpu_routing.prefill_drops()
+            if not info["moe"]["prefill_dropped"]:
+                failed.append(f"{arch}: no pair dropped, the capacity path went unchecked")
+        if arch == FAMILY_REPEAT_ARCH:
+            _, again = generate(lm, card, prompts, gen, card_images, return_logits=True)
+            info["repeat_bit_equal"] = bool(np.array_equal(again, logits))
+        out[arch] = info
+        if not (ok and info["tokens_equal"] and info["routes_equal"]
+                and info.get("repeat_bit_equal", True)) or (device == "cuda" and got != want):
+            failed.append(f"{arch} (launches expected {want})")
+        del params, card
+    result = {"phase": "moe_vlm_parity", "archs": out, "phase_s": time.perf_counter() - t_phase}
+    emit(result)
+    if failed:
+        raise AssertionError(f"moe_vlm_parity failed for {failed}: {out}")
+    return result
+
+
+def phase_schedule(device="cuda", run=SCHEDULE_RUN) -> dict:
+    """NoMora placing the ten LM jobs (`launch/schedule.py`'s
+    `schedule_ml_jobs` at its defaults) on the card and on the CPU with
+    fixed_algo_s = 0: placements (roots, mesh orders, RTTs), every
+    SimMetrics series and summary() equal; the card's launches."""
+    import functools
+
+    from repro_torch import kernels
+    from repro_torch.launch import schedule
+
+    config = schedule.simulator.SimConfig
+    schedule.simulator.SimConfig = functools.partial(config, fixed_algo_s=0.0)
+    try:
+        t0 = time.perf_counter()
+        cpu, cpu_m = schedule.schedule_ml_jobs(*run, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card, card_m = schedule.schedule_ml_jobs(*run, device=device)
+        card_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        schedule.simulator.SimConfig = config
+    diffs = _metric_diffs(card_m, cpu_m)
+    summary = card_m.summary()
+    info = {
+        "phase": "schedule", "machines": run[0], "jobs": run[1], "duration_s": run[2],
+        "placed": len(card), "placements_equal": card == cpu, "metric_diffs": diffs,
+        "avg_app_perf_area": summary["avg_app_perf_area"],
+        "tasks_migrated": summary["tasks_migrated"], "rounds": summary["rounds"],
+        "launches": {k: launches[k] for k in SCHEDULER_KERNELS},
+        "first_placements": dict(list(sorted(card.items()))[:2]),
+        "card_s": card_s, "cpu_s": cpu_s,
+    }
+    emit(info)
+    if not info["placements_equal"] or diffs or len(card) != run[1]:
+        raise AssertionError(f"schedule: card and CPU differ: {info}")
+    if device == "cuda" and not (launches["costmap"] > 0 and launches["auction_phase"] > 0
+                                 and launches["auction_bid"] == 0):
+        raise AssertionError(f"schedule: launches {info['launches']}")
     return info
 
 
@@ -2900,13 +3219,16 @@ def _training(name: str, grad: dict, trains: dict, parity: dict) -> dict:
 
 
 def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict, rec: dict,
-                 rec_served: dict, rest: dict, grad: dict, trains: dict, parity: dict) -> dict:
+                 rec_served: dict, rest: dict, grad: dict, trains: dict, parity: dict,
+                 families: dict, family_parity: dict) -> dict:
     """One entry per kernel at its main shape; ``rec_served`` maps an arch
     to its serve phase's output, ``rest`` the scheduler's later phases to
     theirs, ``trains`` the train phases to theirs. The scheduler's kernels
     count their launches in the full replay, with the dynamic replays' and
     the later phases' beside them; the LM kernels in their serve, with the
-    other serves' and the training phases' beside it."""
+    other serves' (``families``: the MoE and VLM ones, and their card
+    against CPU runs in ``family_parity``) and the training phases' beside
+    it."""
     entries = []
     for name, rows in kern.items():
         main = next(r for r in rows if tuple(r["shape"]) == MAIN_SHAPE)
@@ -2922,11 +3244,19 @@ def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict,
     for name, rows in att.items():
         # The dtypes the serving path uses; recurrentgemma-2b's shape after.
         entry = _entry(name, rows[0], served["launches"][name])
-        by_phase = {p["phase"]: p["launches"][name] for p in (served, gemma)}
+        by_phase = {p["phase"]: p["launches"][name]
+                    for p in (served, gemma, *families.values())}
+        by_phase.update({f"moe_vlm_parity_{arch}": p["launches"][name]
+                         for arch, p in family_parity["archs"].items()})
         if name == "flash_attention":
             extra = trained(name)
             by_phase.update(extra.pop("train_launches_by_phase"))
             entry.update(extra)
+        # The MoE and VLM serves' layer-0 (and first cross layer's) calls
+        # against the plain version: GQA groups 6, 5, 4; the image cache.
+        entry["checks_by_phase"] = {
+            p["phase"]: {k: v for k, v in p["captured_checks"].items() if k.startswith(name)}
+            for p in families.values()}
         entries.append({**entry, "launches_by_phase": by_phase, "shapes": rows + rec[name]})
     for name, arch in (("rglru_scan", "recurrentgemma-2b"), ("rwkv6_scan", "rwkv6-7b")):
         extra = trained(name)
@@ -2965,11 +3295,14 @@ def main() -> int:
     rec_served = {arch: phase_serve(arch=arch, **kw) for arch, kw in RECURRENT_SERVES.items()}
     for arch in RECURRENT_SERVES:
         phase_recurrent_parity(arch)
+    families = {arch: phase_serve(arch=arch, **kw) for arch, kw in FAMILY_SERVES.items()}
+    family_parity = phase_moe_vlm_parity()
+    rest["schedule"] = phase_schedule()
     grad = phase_grad_kernels()
     trains = {phase: phase_train(phase, *run) for phase, run in TRAIN_RUNS.items()}
     parity = phase_train_parity()
     emit(kernels_line(kern, full, dynamic, att, served, rec, rec_served, rest, grad, trains,
-                      parity))
+                      parity, families, family_parity))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

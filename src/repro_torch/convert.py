@@ -142,8 +142,9 @@ def lm_params_from_reference(tree, lm=None):
     ``np.asarray`` takes), keyed as the reference keys it
     (``blocks/pos0_dense/attn/wq`` is ``tree["blocks"]["pos0_dense"]["attn"]
     ["wq"]``, stacked (n_superblocks, ...)). The port keeps the same keys,
-    shapes, dtypes and ``x @ W`` layouts, so this is a copy into CPU
-    tensors. With ``lm`` (a `repro_torch.models.LM`), the keys and shapes
+    shapes, dtypes and ``x @ W`` layouts (a cross layer's ``gate``, an MoE
+    layer's ``router``, ``we1`` / ``we2`` / ``we3`` and ``shared`` FFN
+    included), so this is a copy into CPU tensors. With ``lm`` (a `repro_torch.models.LM`), the keys and shapes
     are checked against ``lm.param_specs()``.
     """
     from .models.layers import tree_map

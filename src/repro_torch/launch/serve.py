@@ -4,8 +4,11 @@ Port of `repro.launch.serve` on one device: batched prefill, then one
 batched decode step per generated token against the preallocated cache
 (written in place: K/V, and the recurrent state of recurrentgemma-2b's rec
 blocks and rwkv6-7b's rwkv blocks), with greedy or temperature sampling.
-``--arch`` takes any architecture whose block kinds are ported (dense,
-local_attn, rec, rwkv), at any ``--reduce``. Parameters are float32 and
+``--arch`` takes any architecture at any ``--reduce`` (the MoE ones,
+dbrx-132b and llama4-scout-17b-a16e, included) but the VLM: its cross
+layers need image embeddings, which ``serve_batch``, as the reference's,
+does not take; serve it through ``LM.prefill`` with ``batch["images"]``
+and ``LM.decode_step``. Parameters are float32 and
 the cache bf16 (recurrent states float32), as the reference's ``main`` and
 ``prefill`` have them. Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's default;

@@ -1,5 +1,5 @@
-"""Attention sequence mixing: global causal, local (sliding window) and
-one-token decode.
+"""Attention sequence mixing: global causal, local (sliding window), cross
+(the VLM's image layers) and one-token decode.
 
 Port of `repro.models.attention`. Causal and decode attention dispatch
 through their kernel's ``ops`` by the device of their tensors: a CUDA
@@ -15,8 +15,12 @@ chunk-pair form: window-sized query chunks against their (previous, own)
 key chunks, O(S x 2W) logits, with PyTorch products, as the reference
 computes it with einsums outside any Pallas kernel.
 
-Cross attention belongs to the VLM's block kind, which a later slice of the
-port brings (ROADMAP.md, module item 11).
+Cross attention (text queries against the image tokens' K/V, no mask) is a
+grouped-query product in float32 with PyTorch ops, as the reference
+computes it with einsums on every backend: q viewed as (B, KVH, G, S, D),
+K/V kept at KVH heads. Neither attention kernel takes it (flash takes one
+S for queries and keys; here it is S x n_img). In decode the cross layer's
+one query goes through `decode_attention` against the image cache.
 """
 
 from __future__ import annotations
@@ -86,11 +90,24 @@ def local_attention(
     return out.reshape(B, H, S, D).to(q.dtype)
 
 
-def cross_attention(q, k, v, *, scale: Optional[float] = None):
-    raise NotImplementedError(
-        "cross_attention (the cross block of the VLM) is not ported yet "
-        "(ROADMAP.md, module item 11)"
-    )
+def cross_attention(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, KVH, S_img, D)
+    v: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Unmasked GQA attention of S queries over S_img keys -> (B, H, S, D)
+    in q's dtype; logits, softmax and products in float32."""
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    if scale is None:
+        scale = 1.0 / (D**0.5)
+    qg = q.reshape(B, KVH, H // KVH, S, D).float()
+    logits = torch.einsum("bkgqd,bkcd->bkgqc", qg, k.float()) * scale
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
+    return out.reshape(B, H, S, D).to(q.dtype)
 
 
 def decode_attention(

@@ -1,25 +1,25 @@
-"""Layer blocks: dense, local_attn, rec (RG-LRU) and rwkv (RWKV-6).
+"""Layer blocks for every architecture family.
 
-Port of `repro.models.blocks` for serving. Each kind provides:
+Port of `repro.models.blocks`. Each kind provides:
   block_specs(kind, cfg)                       -> dict of Param specs
   cache_spec(kind, cfg, batch, s_max)          -> {name: (shape, dtype)}
-  apply_block_seq(kind, cfg, p, x, pos)        -> (y, cache_entry)
+  apply_block_seq(kind, cfg, p, x, pos, img)   -> (y, cache_entry)
   apply_block_decode(kind, cfg, p, x, pos, cache, lengths) -> (y, cache)
 
 Kinds: dense (attention + FFN), local_attn (sliding-window attention +
-FFN, a ring-buffer cache of the last ``local_window`` keys), rec
-(Griffin's RG-LRU recurrent block + FFN, cache: state ``h`` and the
+FFN, a ring-buffer cache of the last ``local_window`` keys), cross
+(tanh-gated cross-attention to the image tokens + FFN, the VLM's; cache:
+the image K/V), moe (attention + a top-k token-choice mixture of experts),
+rec (Griffin's RG-LRU recurrent block + FFN, cache: state ``h`` and the
 temporal conv's history ``conv``) and rwkv (RWKV-6 time mix + channel mix,
 cache: state ``S`` and the token shifts ``shift``, ``shift_c``).
 
 Decode writes every cache entry IN PLACE (the reference returns new
 arrays): K/V at their slot, and the recurrent kinds' states over the old
-ones. The returned dict holds the same tensors. The reference's
-simplifications of the upstream models (static token-shift ratios, the
-decay's LoRA only; diagonal RG-LRU gates) are kept as they are.
-
-The moe and cross kinds raise NotImplementedError naming the slice of the
-port that brings them (ROADMAP.md, module item 11).
+ones; the cross cache is only read. The returned dict holds the same
+tensors. The reference's simplifications of the upstream models (static
+token-shift ratios, the decay's LoRA only; diagonal RG-LRU gates) are kept
+as they are.
 """
 
 from __future__ import annotations
@@ -38,30 +38,12 @@ from .layers import Param, activation_fn, rms_norm, rope
 RGLRU_C = 8.0  # Griffin's recurrence-gate temperature
 RWKV_GN_EPS = 64e-5  # the time mix's group-norm epsilon
 
-_PORTED = ("dense", "local_attn", "rec", "rwkv")
-_NOT_PORTED = {
-    "moe": "the MoE serving slice",
-    "cross": "the VLM serving slice",
-}
-
-
-def _check_kind(kind: str) -> None:
-    if kind in _PORTED:
-        return
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: it comes with "
-            f"{_NOT_PORTED[kind]} (ROADMAP.md, module item 11)"
-        )
-    raise ValueError(kind)
-
-
 # --------------------------------------------------------------------------
 # parameter and cache specs
 # --------------------------------------------------------------------------
 
 
-def _attn_specs(cfg: ArchConfig) -> Dict[str, Param]:
+def _attn_specs(cfg: ArchConfig, cross: bool = False) -> Dict[str, Param]:
     D = cfg.d_model
     s: Dict[str, Param] = {
         "wq": Param((D, cfg.q_dim), ("embed", "heads")),
@@ -72,6 +54,8 @@ def _attn_specs(cfg: ArchConfig) -> Dict[str, Param]:
     if cfg.qk_norm:
         s["q_norm"] = Param((cfg.head_dim,), (None,), init="zeros")
         s["k_norm"] = Param((cfg.head_dim,), (None,), init="zeros")
+    if cross:
+        s["gate"] = Param((1,), (None,), init="zeros")  # llama3.2-style tanh gate
     return s
 
 
@@ -83,6 +67,20 @@ def _ffn_specs(cfg: ArchConfig) -> Dict[str, Param]:
     }
     if cfg.activation == "swiglu":
         s["w3"] = Param((D, F), ("embed", "mlp"))
+    return s
+
+
+def _moe_specs(cfg: ArchConfig) -> Dict[str, Param]:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    s = {
+        "router": Param((D, E), ("embed", None)),
+        "we1": Param((E, D, F), ("experts", "embed", None)),
+        "we2": Param((E, F, D), ("experts", None, "embed")),
+    }
+    if cfg.activation == "swiglu":
+        s["we3"] = Param((E, D, F), ("experts", "embed", None))
+    if cfg.shared_expert:
+        s["shared"] = _ffn_specs(cfg)
     return s
 
 
@@ -127,24 +125,23 @@ def _rwkv_specs(cfg: ArchConfig) -> Dict[str, Param]:
 
 
 def block_specs(kind: str, cfg: ArchConfig) -> Dict[str, Any]:
-    _check_kind(kind)
     norm = lambda: Param((cfg.d_model,), ("embed",), init="zeros")  # noqa: E731
+    if kind in ("dense", "local_attn", "cross"):
+        return {"norm_attn": norm(), "attn": _attn_specs(cfg, cross=kind == "cross"),
+                "norm_ffn": norm(), "ffn": _ffn_specs(cfg)}
+    if kind == "moe":
+        return {"norm_attn": norm(), "attn": _attn_specs(cfg), "norm_ffn": norm(),
+                "moe": _moe_specs(cfg)}
     if kind == "rec":
         return {"norm_mix": norm(), "rec": _rec_specs(cfg), "norm_ffn": norm(),
                 "ffn": _ffn_specs(cfg)}
     if kind == "rwkv":
         return {"norm_mix": norm(), "norm_ffn": norm(), "rwkv": _rwkv_specs(cfg)}
-    return {
-        "norm_attn": norm(),
-        "attn": _attn_specs(cfg),
-        "norm_ffn": norm(),
-        "ffn": _ffn_specs(cfg),
-    }
+    raise ValueError(kind)
 
 
 def cache_spec(kind: str, cfg: ArchConfig, batch: int, s_max: int):
     """Shape/dtype spec dict for one layer's decode cache."""
-    _check_kind(kind)
     if kind == "rec":
         R = cfg.rnn_width or cfg.d_model
         return {
@@ -158,7 +155,14 @@ def cache_spec(kind: str, cfg: ArchConfig, batch: int, s_max: int):
             "shift": ((batch, cfg.d_model), torch.bfloat16),
             "shift_c": ((batch, cfg.d_model), torch.bfloat16),
         }
-    s = min(cfg.local_window, s_max) if kind == "local_attn" else s_max
+    if kind in ("dense", "moe"):
+        s = s_max
+    elif kind == "local_attn":
+        s = min(cfg.local_window, s_max)
+    elif kind == "cross":
+        s = cfg.n_image_tokens
+    else:
+        raise ValueError(kind)
     shape = (batch, cfg.n_kv_heads, s, cfg.head_dim)
     return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
 
@@ -191,8 +195,18 @@ def _qkv(cfg, p, x, positions, *, rope_on=True):
     return q, k, v
 
 
-def attn_seq(cfg, p, x, positions, kind):
-    """Full-sequence attention sublayer. Returns (out, (k, v))."""
+def attn_seq(cfg, p, x, positions, kind, img=None):
+    """Full-sequence attention sublayer. Returns (out, (k, v)); for cross,
+    K/V are the image tokens' (no rope on either side, q_norm only) and the
+    output is scaled by tanh(gate)."""
+    if kind == "cross":
+        q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = _split_heads(img @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+        v = _split_heads(img @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+        o = attention.cross_attention(q, k, v)
+        return torch.tanh(p["gate"]) * (_merge_heads(o) @ p["wo"]), (k, v)
     q, k, v = _qkv(cfg, p, x, positions)
     if kind == "local_attn":
         o = attention.local_attention(q, k, v, cfg.local_window)
@@ -204,11 +218,21 @@ def attn_seq(cfg, p, x, positions, kind):
 def attn_decode(cfg, p, x, positions, kind, cache, lengths):
     """One-token attention sublayer against the cache.
 
-    The new K/V go into the cache IN PLACE at slot ``lengths[b]`` (dense)
-    or ``lengths[b] % w`` (local_attn's ring of w slots, valid
+    The new K/V go into the cache IN PLACE at slot ``lengths[b]`` (dense,
+    moe) or ``lengths[b] % w`` (local_attn's ring of w slots, valid
     ``min(lengths[b] + 1, w)``); the returned dict holds the same tensors.
+    A cross layer's query attends to all of its image cache, which it
+    leaves as it is.
     """
     B = x.shape[0]
+    if kind == "cross":
+        q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)[:, :, 0]
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        n_img = cache["k"].shape[2]
+        full = torch.full((B,), n_img, dtype=torch.int32, device=x.device)
+        o = attention.decode_attention(q, cache["k"], cache["v"], full)
+        return torch.tanh(p["gate"]) * (o.reshape(B, 1, -1) @ p["wo"]), cache
     q, k, v = _qkv(cfg, p, x, positions)
     if kind == "local_attn":
         w = cache["k"].shape[2]
@@ -235,7 +259,7 @@ def _ring(k: torch.Tensor, window: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# FFN
+# FFN / MoE
 # --------------------------------------------------------------------------
 
 
@@ -245,6 +269,119 @@ def ffn_apply(cfg, p, x):
     if cfg.activation == "swiglu":
         h = h * (x @ p["w3"])
     return h @ p["w2"]
+
+
+MOE_GROUPS = 64  # dispatch groups (the reference aligns them to the data axis)
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    for g in range(min(cap, n), 0, -1):
+        if n % g == 0:
+            return g
+    return 1
+
+
+def _moe_dispatch(cfg, router, xt):
+    """Group-local dispatch: (G, Tg, D) tokens -> (G, E, cap, D) buffers.
+
+    Per group, the Tg * K (token, choice) pairs are sorted by expert
+    (stably), and each takes the next of its expert's ``cap`` slots; pairs
+    past ``cap`` are dropped. Returns (buf, meta) with meta = (e_sorted,
+    pos_c, keep, g_sorted, tok_sorted, order): the reference's fields
+    (but its group index, a broadcast) and the sort's permutation, which
+    `_moe_combine` inverts. The top K are taken from a stable descending
+    sort, so that ties go to the lower expert as in ``jax.lax.top_k``.
+    Indices are int64 where torch's sort, gather and scatter produce or
+    take them (the values equal the reference's int32), positions int32.
+    """
+    G, Tg, D = xt.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    cap = min(int(cfg.moe_capacity_factor * Tg * K / E) + 1, Tg * K)
+
+    logits = (xt @ router).float()  # (G, Tg, E)
+    gate_all = torch.softmax(logits, dim=-1)
+    gates, experts = torch.sort(gate_all, dim=-1, descending=True, stable=True)
+    gates, experts = gates[..., :K], experts[..., :K]  # (G, Tg, K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = experts.reshape(G, Tg * K)
+    flat_g = gates.reshape(G, Tg * K)
+    order = torch.argsort(flat_e, dim=1, stable=True)  # group-local sort
+    e_sorted = flat_e.gather(1, order)
+    tok_sorted = order // K  # the pair's token: flat index t * K + k
+    g_sorted = flat_g.gather(1, order)
+
+    # Slot of each pair within its expert's run: its index minus the run's
+    # first index (a running max of the runs' first indices).
+    ar = torch.arange(Tg * K, dtype=torch.int32, device=xt.device).expand(G, -1)
+    change = torch.ones_like(e_sorted, dtype=torch.bool)
+    change[:, 1:] = e_sorted[:, 1:] != e_sorted[:, :-1]
+    first_idx = torch.cummax(torch.where(change, ar, 0), dim=1).values
+    pos = ar - first_idx
+    keep = pos < cap
+    pos_c = torch.where(keep, pos, 0)
+
+    gathered = xt.gather(1, tok_sorted[..., None].expand(-1, -1, D))
+    g_idx = torch.arange(G, device=xt.device)[:, None]
+    # A kept pair is alone in its slot; a dropped one adds zeros to slot 0.
+    buf = torch.zeros((G, E, cap, D), dtype=xt.dtype, device=xt.device).index_put(
+        (g_idx, e_sorted, pos_c.long()), torch.where(keep[..., None], gathered, 0),
+        accumulate=True)
+    return buf, (e_sorted, pos_c, keep, g_sorted, tok_sorted, order)
+
+
+def _moe_experts(cfg, p, buf):
+    """(G, E, cap, D) -> (G, E, cap, D): each expert's FFN on its slots."""
+    act = activation_fn(cfg.activation)
+    h = act(torch.einsum("gecd,edf->gecf", buf, p["we1"]))
+    if cfg.activation == "swiglu":
+        h = h * torch.einsum("gecd,edf->gecf", buf, p["we3"])
+    return torch.einsum("gecf,efd->gecd", h, p["we2"])
+
+
+def _moe_combine(out_buf, meta, shape, dtype):
+    """Each token's gate-weighted expert outputs, summed over its K choices.
+
+    The reference scatter-adds the (G, Tg * K) contributions onto their
+    tokens. Here they go back through the sort's inverse permutation to
+    (token, choice) order and are summed over the K choices in index
+    order: the same terms without atomics, so two runs on the card give
+    the same bits (XLA's CPU scatter may add them in another order).
+    """
+    G, Tg, D = shape
+    e_sorted, pos_c, keep, g_sorted, tok_sorted, order = meta
+    K = e_sorted.shape[1] // Tg
+    g_idx = torch.arange(G, device=out_buf.device)[:, None]
+    w = torch.where(keep, g_sorted, 0.0)[..., None].to(dtype)
+    contrib = out_buf[g_idx, e_sorted, pos_c.long()] * w  # (G, Tg * K, D), sorted order
+    inv = torch.empty_like(order).scatter_(1, order, torch.arange(
+        Tg * K, device=order.device).expand(G, -1))
+    c = contrib.gather(1, inv[..., None].expand(-1, -1, D)).reshape(G, Tg, K, D)
+    out = c[:, :, 0]
+    for k in range(1, K):
+        out = out + c[:, :, k]
+    return out
+
+
+def moe_apply(cfg, p, x):
+    """Top-k token-choice MoE with group-local dispatch.
+
+    The B * S tokens split into G = the largest divisor of B * S up to
+    ``MOE_GROUPS`` groups; each expert takes at most cap = cf * Tg * K / E
+    (+ 1) pairs of a group (Switch-style), the rest are dropped. This is
+    the reference's single-device path; its shard_map over the batch axes
+    and the sharding constraints come with the multi-device slice.
+    """
+    B, S, D = x.shape
+    T = B * S
+    G = _largest_divisor_leq(T, MOE_GROUPS)
+    Tg = T // G
+    xt = x.reshape(G, Tg, D)
+    buf, meta = _moe_dispatch(cfg, p["router"], xt)
+    out = _moe_combine(_moe_experts(cfg, p, buf), meta, (G, Tg, D), xt.dtype)
+    if cfg.shared_expert:
+        out = out + ffn_apply(cfg, p["shared"], xt)
+    return out.reshape(B, S, D)
 
 
 # --------------------------------------------------------------------------
@@ -362,11 +499,15 @@ def rwkv_channel_mix(cfg, p, x, last=None):
 # --------------------------------------------------------------------------
 
 
-def apply_block_seq(kind, cfg, p, x, positions):
+def _mlp(kind, cfg, p, x):
+    return moe_apply(cfg, p["moe"], x) if kind == "moe" else ffn_apply(cfg, p["ffn"], x)
+
+
+def apply_block_seq(kind, cfg, p, x, positions, img=None):
     """Full-sequence block. Returns (y, cache entry at the prompt's length),
     with the entries of ``cache_spec(kind)`` (K/V, for local_attn in the
-    ring layout)."""
-    _check_kind(kind)
+    ring layout; for cross the image K/V). ``img`` (B, n_img, D) is read
+    by cross blocks only."""
     if kind == "rec":
         xn = rms_norm(x, p["norm_mix"], cfg.norm_eps)
         a, entry = rec_seq(cfg, p["rec"], xn)
@@ -381,11 +522,13 @@ def apply_block_seq(kind, cfg, p, x, positions):
         xn2 = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
         x = x + rwkv_channel_mix(cfg, pr, xn2)
         return x, {"S": s_final, "shift": xn[:, -1], "shift_c": xn2[:, -1]}
+    if kind not in ("dense", "local_attn", "cross", "moe"):
+        raise ValueError(kind)
     xn = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    a, (k, v) = attn_seq(cfg, p["attn"], xn, positions, kind)
+    a, (k, v) = attn_seq(cfg, p["attn"], xn, positions, kind, img)
     x = x + a
     xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
-    x = x + ffn_apply(cfg, p["ffn"], xn)
+    x = x + _mlp(kind, cfg, p, xn)
     if kind == "local_attn":
         k, v = _ring(k, cfg.local_window), _ring(v, cfg.local_window)
     return x, {"k": k, "v": v}
@@ -393,7 +536,6 @@ def apply_block_seq(kind, cfg, p, x, positions):
 
 def apply_block_decode(kind, cfg, p, x, positions, cache, lengths):
     """One-token block (x: (B, 1, D)). Returns (y, cache updated in place)."""
-    _check_kind(kind)
     if kind == "rec":
         xn = rms_norm(x, p["norm_mix"], cfg.norm_eps)
         a, cache = rec_decode(cfg, p["rec"], xn, cache)
@@ -411,8 +553,10 @@ def apply_block_decode(kind, cfg, p, x, positions, cache, lengths):
         cache["shift"].copy_(xn[:, 0])
         cache["shift_c"].copy_(xn2[:, 0])
         return x, cache
+    if kind not in ("dense", "local_attn", "cross", "moe"):
+        raise ValueError(kind)
     xn = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     a, cache = attn_decode(cfg, p["attn"], xn, positions, kind, cache, lengths)
     x = x + a
     xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
-    return x + ffn_apply(cfg, p["ffn"], xn), cache
+    return x + _mlp(kind, cfg, p, xn), cache

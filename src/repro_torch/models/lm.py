@@ -1,6 +1,6 @@
 """The decoder LM: a loop over stacked layers of a per-arch layer pattern.
 
-Port of `repro.models.lm` for serving. Parameters are a nested dict of
+Port of `repro.models.lm`. Parameters are a nested dict of
 tensors with the reference's keys and shapes: each pattern position's
 parameters are stacked along a leading layer axis
 (``params["blocks"]["pos0_dense"]["attn"]["wq"]`` is (n_superblocks, D,
@@ -22,6 +22,13 @@ each block kind writes its entries into the cache tensors it is handed,
 views of the stacked buffers (K/V at their slot, the local ring at
 ``len % w``, the rec block's ``h`` and ``conv``, the rwkv block's ``S``,
 ``shift`` and ``shift_c`` over their old values).
+
+A batch holds ``tokens`` (B, S), or ``embeds`` (B, S, D) where the arch
+takes its inputs as embeddings (musicgen's frontend stub), and, for an
+arch with cross layers (the VLM), ``images`` (B, n_img, D), the patch
+embeddings' stub: every cross layer of ``forward``, ``loss`` and
+``prefill`` attends to them, and ``prefill`` leaves their K/V in the cross
+layers' cache, which ``decode_step`` reads.
 
 Training differentiates ``hidden_states`` with respect to the parameters.
 With ``remat`` each superblock runs under
@@ -92,28 +99,38 @@ class LM:
         for l in range(self.cfg.n_superblocks):
             yield tree_map(lambda ts: ts[l], per_layer)
 
-    def _superblock(self, x, layer_p, positions):
+    def _images(self, batch):
+        """``batch["images"]``, required where the arch has cross layers."""
+        img = batch.get("images")
+        if img is None and "cross" in self.cfg.pattern + self.cfg.remainder:
+            raise ValueError(f"{self.cfg.name} has cross-attention layers: the batch needs "
+                             f'batch["images"], (B, n_img, d_model) image embeddings')
+        return img
+
+    def _superblock(self, x, layer_p, positions, img):
         for i, kind in enumerate(self.cfg.pattern):
-            x, _ = blocks.apply_block_seq(kind, self.cfg, layer_p[f"pos{i}_{kind}"], x, positions)
+            x, _ = blocks.apply_block_seq(kind, self.cfg, layer_p[f"pos{i}_{kind}"], x, positions,
+                                          img)
         return x
 
     def hidden_states(self, params, batch, remat: bool = False):
-        """(B, S) tokens -> (B, S, D) after the final norm."""
+        """(B, S) tokens (+ images) -> (B, S, D) after the final norm."""
         cfg = self.cfg
         x = self._embed(params, batch)
+        img = self._images(batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         for layer_p in self._layers(params):
             if remat:
-                x = checkpoint(self._superblock, x, layer_p, positions, use_reentrant=False)
+                x = checkpoint(self._superblock, x, layer_p, positions, img, use_reentrant=False)
             else:
-                x = self._superblock(x, layer_p, positions)
+                x = self._superblock(x, layer_p, positions, img)
         for j, kind in enumerate(cfg.remainder):
-            x, _ = blocks.apply_block_seq(kind, cfg, params[f"rem{j}_{kind}"], x, positions)
+            x, _ = blocks.apply_block_seq(kind, cfg, params[f"rem{j}_{kind}"], x, positions, img)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def forward(self, params, batch, remat: bool = False):
-        """(B, S) tokens -> (B, S, V) float32 logits."""
+        """(B, S) tokens (+ images) -> (B, S, V) float32 logits."""
         return self._logits(params, self.hidden_states(params, batch, remat=remat))
 
     LOSS_CHUNK = 2048  # sequence chunk of the CE block (memory bound)
@@ -187,7 +204,9 @@ class LM:
     def decode_step(self, params, batch, cache, lengths):
         """One new token for every sequence in the batch.
 
-        batch: {"tokens": (B, 1)}. Returns (logits (B, V), cache, lengths + 1);
+        batch: {"tokens": (B, 1)} or {"embeds": (B, 1, D)}; cross layers read
+        the image K/V that ``prefill`` cached. Returns (logits (B, V), cache,
+        lengths + 1);
         every block writes its cache entries in place, so the blocks'
         returned dicts are the cache's own tensors and are not read.
         """
@@ -219,18 +238,19 @@ class LM:
         """
         cfg = self.cfg
         x = self._embed(params, batch)
+        img = self._images(batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         cache = self.init_cache(B, s_max, dtype=cache_dtype, device=x.device)
         for l, layer_p in enumerate(self._layers(params)):
             for i, kind in enumerate(cfg.pattern):
                 key = f"pos{i}_{kind}"
-                x, got = blocks.apply_block_seq(kind, cfg, layer_p[key], x, positions)
+                x, got = blocks.apply_block_seq(kind, cfg, layer_p[key], x, positions, img)
                 for name, t in got.items():
                     _place(cache["blocks"][key][name][l], t)
         for j, kind in enumerate(cfg.remainder):
             key = f"rem{j}_{kind}"
-            x, got = blocks.apply_block_seq(kind, cfg, params[key], x, positions)
+            x, got = blocks.apply_block_seq(kind, cfg, params[key], x, positions, img)
             for name, t in got.items():
                 _place(cache[key][name], t)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -243,6 +263,6 @@ def _place(buf: torch.Tensor, got: torch.Tensor) -> torch.Tensor:
     """Write a prefill cache entry into the preallocated decode buffer, in
     place and cast to the buffer's dtype: K/V (.., KVH, S, Dh) into
     (.., KVH, S_max, Dh) at offset 0; an entry of the buffer's own shape
-    (a recurrent state, a full local ring) over all of it."""
+    (a recurrent state, a full local ring, the image K/V) over all of it."""
     buf[tuple(slice(0, n) for n in got.shape)].copy_(got)
     return buf

@@ -412,6 +412,9 @@ def _att_tol(*dtypes):
         (1, 4, 2, 77, 256, "f16", False),
         (2, 4, 2, 77, 128, "bf16", True),
         (1, 10, 1, 2048, 256, "f32", True),  # recurrentgemma-2b per-layer prefill
+        (2, 48, 8, 1024, 128, "f32", True),  # dbrx-132b: G = 6
+        (2, 40, 8, 1024, 128, "f32", True),  # llama4-scout: G = 5
+        (2, 32, 8, 1024, 128, "f32", True),  # llama-3.2-vision: G = 4
     ],
 )
 def test_flash_kernel_equals_plain(cuda, B, H, KVH, S, D, dt, causal):
@@ -456,6 +459,10 @@ def test_flash_kernel_takes_strided_heads(cuda):
         (3, 6, 2, 77, 42, "f32", "bf16"),  # head_dim of --reduce 3: element path
         (3, 6, 2, 77, 18, "f32", "f32"),
         (2, 4, 2, 33, 85, "bf16", "f16"),
+        (8, 48, 8, 1088, 128, "f32", "bf16"),  # dbrx-132b serving: G = 6
+        (8, 40, 8, 1088, 128, "f32", "bf16"),  # llama4-scout serving: G = 5
+        (8, 32, 8, 1088, 128, "f32", "bf16"),  # llama-3.2-vision self-attention: G = 4
+        (8, 32, 8, 1601, 128, "f32", "bf16"),  # its image cache: odd S
     ],
 )
 def test_decode_kernel_equals_plain(cuda, B, H, KVH, S, D, q_dt, c_dt):
@@ -479,6 +486,66 @@ def test_decode_kernel_equals_plain(cuda, B, H, KVH, S, D, q_dt, c_dt):
     # The kernel keeps no state between calls: a second call agrees bit for bit.
     torch.testing.assert_close(kernel_cuda.decode_attention_cuda(q, kc, vc, lengths), got,
                                atol=0, rtol=0)
+
+
+def test_decode_kernel_against_a_full_image_cache(cuda):
+    """The VLM's cross layers: every row attends to all 1,601 image
+    positions (lengths = S), the cache a view of the stacked layers'."""
+    from repro_torch.kernels.decode_attention import kernel_cuda, ref
+
+    rng = np.random.default_rng(1601)
+    B, H, KVH, S, D = 8, 32, 8, 1601, 128
+    q = _randn(rng, (B, H, D), cuda)
+    stacked = _randn(rng, (2, 2, B, KVH, S, D), cuda, torch.bfloat16)
+    kc, vc = stacked[1, 0], stacked[1, 1]
+    lengths = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    got = kernel_cuda.decode_attention_cuda(q, kc, vc, lengths)
+    torch.testing.assert_close(got, ref.decode_attention_ref(q, kc, vc, lengths),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-scout-17b-a16e", "llama-3.2-vision-11b"])
+def test_small_moe_and_vlm_greedy_card_equals_cpu(cuda, arch):
+    """reduce 8 (MoE at capacity factor 1.25: pairs are dropped), the VLM
+    with image embeddings and non-zero gates: greedy tokens equal, logits
+    within 2e-3, exact launches."""
+    from repro_torch import configs, kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, layers
+
+    cfg = serve.reduce_config(configs.get_config(arch), 8)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(6), dtype=torch.float32)
+    kinds = cfg.pattern * cfg.n_superblocks + cfg.remainder
+    for key in params["blocks"]:
+        if key.endswith("cross"):
+            params["blocks"][key]["attn"]["gate"].fill_(0.7)
+    rng = np.random.default_rng(6)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 40)))
+    batch = {"tokens": prompts}
+    if cfg.n_image_tokens:
+        batch["images"] = torch.from_numpy(
+            rng.normal(0, 1, (2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32))
+
+    def greedy(p, device):
+        b = {k: v.to(device) for k, v in batch.items()}
+        logits, cache, lengths = lm.prefill(p, b, s_max=46)
+        out, seen = [logits.argmax(-1)], [logits]
+        for _ in range(5):
+            logits, cache, lengths = lm.decode_step(p, {"tokens": out[-1][:, None]}, cache,
+                                                    lengths)
+            out.append(logits.argmax(-1))
+            seen.append(logits)
+        return torch.stack(out, 1).cpu().numpy(), torch.stack(seen, 1).cpu().numpy()
+
+    cpu_tokens, cpu_logits = greedy(params, "cpu")
+    kernels.reset_launch_counts()
+    tokens, logits = greedy(layers.tree_map(lambda t: t.to(cuda), params), cuda)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == len(kinds) - kinds.count("cross")
+    assert counts["decode_attention"] == len(kinds) * 5
+    np.testing.assert_array_equal(tokens, cpu_tokens)
+    np.testing.assert_allclose(logits, cpu_logits, atol=2e-3, rtol=2e-3)
 
 
 def test_attention_kernels_refuse_bad_inputs(cuda):

@@ -1,10 +1,14 @@
 """repro_torch's training gradients against the reference on the CPU.
 
-`LM.loss` and its gradients for the three ported layer families, at tiny
-sizes (d_model 64, vocab 512, S 32): dense (qwen3-0.6b, 2 layers),
+`LM.loss` and its gradients for every layer family, at tiny sizes
+(d_model 64, vocab 512, S 32): dense (qwen3-0.6b, 2 layers),
 rec + local_attn (recurrentgemma-2b, one (rec, rec, local_attn) superblock
 and its (rec, rec) remainder, window 16 so that S = 32 takes the
-chunk-pair form) and rwkv (rwkv6-7b, 2 layers of 4 heads of 16). The
+chunk-pair form), rwkv (rwkv6-7b, 2 layers of 4 heads of 16), moe
+(dbrx-132b, 2 layers of 4 experts top-2 at capacity factor 1.25, on 4 x 64
+tokens: 64 groups of 4 tokens with 3 slots an expert, so pairs are
+dropped) and cross (llama-3.2-vision-11b, one (dense x 3, cross, dense)
+superblock against 8 image embeddings, the gate drawn non-zero). The
 same numpy parameters and batches go to the reference's ``lm.loss`` under
 ``jax.value_and_grad`` and to the port's loss under autograd, with and
 without a mask and with ``LOSS_CHUNK`` set to 8 on both classes (four CE
@@ -38,7 +42,7 @@ from repro_torch.kernels.rglru_scan import ops as rg_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ref as rg_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as rk_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as rk_ref  # noqa: E402
-from repro_torch.models import LM, layers  # noqa: E402
+from repro_torch.models import LM, blocks, layers  # noqa: E402
 from repro_torch.optim.adamw import leaves  # noqa: E402
 from repro_torch.train import loss_and_grads  # noqa: E402
 
@@ -49,15 +53,20 @@ TINY = {
                               d_ff=128, vocab_size=512, rnn_width=64, local_window=16),
     "rwkv6-7b": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, rwkv_head_dim=16,
                      d_ff=128, vocab_size=512),
+    "dbrx-132b": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                      vocab_size=512, n_experts=4, experts_per_token=2,
+                      moe_capacity_factor=1.25),
+    "llama-3.2-vision-11b": dict(n_layers=5, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+                                 d_ff=128, vocab_size=512, n_image_tokens=8),
 }
-B, S = 2, 32
+SHAPE = {"dbrx-132b": (4, 64)}  # (B, S); else (2, 32)
 
 
 @pytest.fixture(scope="module", params=list(TINY))
 def pair(request):
     """(reference LM, reference params, port LM, port params, numpy batch):
     parameters drawn with numpy from the specs (the zero-initialised ones
-    at 0.1), a batch of tokens with a random mask."""
+    at 0.1), a batch of tokens with a random mask (and image embeddings)."""
     arch = request.param
     rlm = RefLM(dataclasses.replace(ref_configs.get_config(arch), **TINY[arch]))
     lm = LM(dataclasses.replace(configs.get_config(arch), **TINY[arch]))
@@ -69,10 +78,28 @@ def pair(request):
         return (scale * rng.standard_normal(p.shape)).astype(np.float32)
 
     tree = layers.tree_map(draw, lm.param_specs())
+    B, S = SHAPE.get(arch, (2, 32))
     batch = {"tokens": rng.integers(0, lm.cfg.vocab_size, size=(B, S)).astype(np.int32),
              "mask": rng.random((B, S)) < 0.8}
+    if lm.cfg.n_image_tokens:
+        batch["images"] = rng.normal(0, 1, (B, lm.cfg.n_image_tokens, 64)).astype(np.float32)
     return (rlm, jax.tree_util.tree_map(jnp.asarray, tree), lm,
             convert.lm_params_from_reference(tree, lm), batch)
+
+
+def _count_drops(monkeypatch):
+    """A one-element list counting the (token, choice) pairs the port's MoE
+    dispatch drops while the test runs."""
+    dropped = [0]
+    dispatch = blocks._moe_dispatch
+
+    def counting(*args):
+        buf, meta = dispatch(*args)
+        dropped[0] += int((~meta[2]).sum())
+        return buf, meta
+
+    monkeypatch.setattr(blocks, "_moe_dispatch", counting)
+    return dropped
 
 
 def _loss_chunk(monkeypatch, chunk):
@@ -86,7 +113,8 @@ def test_loss_and_grads_match_reference(pair, monkeypatch, masked, chunk):
     rlm, rp, lm, params, batch = pair
     _loss_chunk(monkeypatch, chunk)
     if not masked:
-        batch = {"tokens": batch["tokens"]}
+        batch = {k: v for k, v in batch.items() if k != "mask"}
+    dropped = _count_drops(monkeypatch)
     want_loss, want = jax.jit(jax.value_and_grad(lambda p, b: rlm.loss(p, b)))(
         rp, jax.tree_util.tree_map(jnp.asarray, batch))
     loss, grads = loss_and_grads(lm, params, {k: torch.from_numpy(v) for k, v in batch.items()},
@@ -103,6 +131,8 @@ def test_loss_and_grads_match_reference(pair, monkeypatch, masked, chunk):
                                    err_msg=jax.tree_util.keystr(path))
 
     jax.tree_util.tree_map_with_path(close, want)
+    if lm.cfg.n_experts:
+        assert dropped[0] > 0  # capacity dropped pairs: their path carries no gradient
 
 
 def test_remat_equals_no_remat(pair, monkeypatch):
@@ -121,7 +151,8 @@ def test_remat_equals_no_remat(pair, monkeypatch):
 def test_cpu_gradients_launch_nothing(pair):
     _, _, lm, params, batch = pair
     kernels.reset_launch_counts()
-    loss, _ = loss_and_grads(lm, params, {"tokens": torch.from_numpy(batch["tokens"])})
+    loss, _ = loss_and_grads(lm, params, {k: torch.from_numpy(v) for k, v in batch.items()
+                                          if k != "mask"})
     assert np.isfinite(float(loss))
     assert not any(kernels.launch_counts().values())
 

@@ -90,10 +90,26 @@ def test_training_imports_leave_jax_and_reference_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_launcher_imports_leave_jax_and_reference_out():
+    code = (
+        "import sys, repro_torch.launch.schedule, repro_torch.launch.mesh\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_every_reference_training_module_of_the_slice_has_a_counterpart():
     for pkg, names in (("optim", ("adamw.py", "schedule.py")), ("data", ("pipeline.py",)),
                        ("checkpoint", ("manager.py",)), ("train", ("steps.py",)),
-                       ("launch", ("train.py", "serve.py"))):
+                       ("launch", ("train.py", "serve.py", "schedule.py", "mesh.py"))):
         for name in names:
             assert (ROOT / "src" / "repro" / pkg / name).exists(), (pkg, name)
             assert (ROOT / "src" / "repro_torch" / pkg / name).exists(), (pkg, name)
@@ -193,6 +209,19 @@ def test_serve_cuda_request_without_cuda_raises():
     lm = LM(serve.reduce_config(configs.get_config("qwen3-0.6b"), 8))
     with pytest.raises(RuntimeError, match="cuda"):
         lm.init_cache(1, 8)
+
+
+def test_schedule_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-CUDA error cannot be shown")
+    from repro_torch.launch import mesh, schedule
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        schedule.schedule_ml_jobs(32, 2, 20)
+    with pytest.raises(RuntimeError, match="cuda"):
+        schedule.main(["--machines", "32", "--jobs", "2", "--duration", "20"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.nomora_ordered_devices([0, 1], [5.0, 3.0])
 
 
 def test_scan_wrappers_refuse_cpu_tensors():

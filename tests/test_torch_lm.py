@@ -29,7 +29,7 @@ from repro.models import LM as RefLM  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro_torch import configs, convert, kernels  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import LM, attention, blocks, layers  # noqa: E402
+from repro_torch.models import LM, layers  # noqa: E402
 
 F32_TOL = 1e-4
 BF16_CACHE_TOL = 2e-3
@@ -185,16 +185,16 @@ def test_serve_main_on_cpu(capsys):
     assert "device=cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kind", ["moe", "cross"])
-def test_unported_block_kinds_raise(kind):
-    cfg = configs.get_config("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blocks.block_specs(kind, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blocks.cache_spec(kind, cfg, 1, 8)
-
-
-def test_unported_attention_raises():
-    x = torch.zeros((1, 2, 4, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.cross_attention(x, x, x)
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-scout-17b-a16e"])
+def test_serve_batch_moe_tokens_equal_reference(arch):
+    """The MoE archs through `serve_batch` unchanged, at reduce 16 (capacity
+    factor 1.25: pairs are dropped in the prefill), on the reference's
+    parameters carried across: the greedy tokens equal the reference's."""
+    rlm = RefLM(ref_reduce_config(ref_configs.get_config(arch), 16))
+    lm = LM(serve.reduce_config(configs.get_config(arch), 16))
+    rp = rlm.init(jax.random.PRNGKey(2), dtype=jnp.float32)
+    params = convert.lm_params_from_reference(jax.tree_util.tree_map(np.asarray, rp), lm)
+    # 3 x 64 prompt tokens: 64 groups of 3, so an expert can overflow.
+    prompts = np.random.default_rng(5).integers(0, lm.cfg.vocab_size, size=(3, 64))
+    want = ref_serve.serve_batch(rlm, rp, prompts, 8, make_mesh((1, 1), ("data", "model")))
+    np.testing.assert_array_equal(serve.serve_batch(lm, params, prompts, 8), want)

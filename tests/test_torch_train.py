@@ -214,6 +214,38 @@ def test_checkpoint_written_by_port_restores_in_reference(tiny, tmp_path):
     _equal_leaves(ours, RefManager(str(tmp_path)).restore(template))
 
 
+MOE_TINY = dict(TINY, n_experts=4, experts_per_token=2)
+
+
+@pytest.fixture(scope="module", params=["dbrx-132b", "llama4-scout-17b-a16e"])
+def tiny_moe(request):
+    """(reference LM, port LM, numpy parameters) of a tiny MoE config:
+    router and experts, and for llama4-scout the shared expert too."""
+    arch = request.param
+    rlm = RefLM(dataclasses.replace(ref_configs.get_config(arch), **MOE_TINY))
+    lm = LM(dataclasses.replace(configs.get_config(arch), **MOE_TINY))
+    return rlm, lm, _draw(lm.param_specs(), 0)
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_moe_checkpoint_crosses_packages(tiny_moe, tmp_path, writer):
+    ref, ours = _states(tiny_moe)
+    names = [n for n, _ in _flatten_with_paths(ours)]
+    assert names == [n for n, _ in ref_flatten(ref)[0]]
+    assert "0/blocks/pos0_moe/moe/router" in names and "0/blocks/pos0_moe/moe/we2" in names
+    assert ("0/blocks/pos0_moe/moe/shared/w1" in names) == tiny_moe[1].cfg.shared_expert
+    if writer == "reference":
+        RefManager(str(tmp_path)).save(3, ref, blocking=True)
+        specs = tiny_moe[1].param_specs()
+        _equal_leaves(CheckpointManager(str(tmp_path)).restore(TrainState(specs, specs, specs, 0)),
+                      ref)
+    else:
+        mgr = CheckpointManager(str(tmp_path))
+        mgr.save(3, ours)
+        mgr.wait()
+        _equal_leaves(ours, RefManager(str(tmp_path)).restore(jax.eval_shape(lambda: ref)))
+
+
 def _tree(seed=0):
     g = torch.Generator().manual_seed(seed)
     return {"a": torch.randn((8, 16), generator=g),
