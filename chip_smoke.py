@@ -274,12 +274,45 @@ exits non-zero; nothing is caught):
               sign(g), which turns rounding differences on near-zero
               gradients into full steps).
 
+17. dist_parity - ranks (`repro_torch.distributed.comm.run_ranks`): two
+              ranks sharing the card through host-staged gloo (NCCL refuses
+              two ranks on one card), against the same two ranks on the CPU
+              (run meanwhile), qwen3-0.6b and dbrx-132b at reduce 8: 3
+              FSDP-sharded steps and 3 compressed-DP steps (losses within
+              rtol 1e-4, every parameter leaf within 1e-3 * max|leaf| +
+              1e-6; AdamW as TRAIN_PARITY_ADAMW), the 2-stage GPipe loss
+              and gradients on a pod mesh of the same ranks, and the --mesh
+              2x1 serve at 4 x 16 and 2 x 45 prompts (45 MoE groups
+              straddle the ranks): tokens equal, logits within 2e-3. With
+              two cards the same over NCCL; with one, "not run: 1 card".
+18. train_fsdp - ``launch.train --mesh 2x1 --dist-backend gloo``, qwen3-0.6b
+              full width, the train phase's 8 x 1,024 batches: 2 steps, a
+              checkpoint at 2, a run resumed from it for step 2 (steps cut
+              from 4: each moves 4.8 GB through host-staged gloo); losses
+              against the train phase's (step 1 rtol 1e-5, later 1e-3);
+              the checkpoint restored on one rank (`elastic_mesh(1, 1)`)
+              and stepped once, its loss within 1e-5 of the resumed run's;
+              step ms, bytes gathered and reduce-scattered a step, each
+              rank's peak memory, launches summed over the ranks.
+19. train_compressed - the compressed-DP step on two ranks, the same model
+              and batches, 2 steps: step ms, the int32 payload's bytes
+              against the float32 gradients', losses beside FSDP's.
+20. train_pp - qwen3-0.6b full width as 2 GPipe stages of 14 layers over
+              ``pod``, 4 microbatches of 2 x 1,024: the loss within rtol
+              1e-5 of the serial loss on the card, every gradient leaf
+              within 1e-4 of its largest magnitude; 56 flash launches a
+              rank.
+21. serve_dp - ``launch.serve --mesh 2x1 --dist-backend gloo``, qwen3-0.6b
+              full width, 8 requests of 1,024 + 64: prefill s, decode ms a
+              step and tokens/s beside the serve phase's; exact launches.
+
 Then a ``{"kernels": [...]}`` line (one entry per kernel: route, source,
 the TPU kernel it replaces, launches in the run of its main path - the
 full-width replay for the scheduler's kernels (with the dynamic ON and OFF
 replays' and phases 6d-6h's and 13d's beside them), the qwen3-0.6b serve for
 the attention kernels (with the recurrentgemma, MoE and VLM serves' and
-parities' and, for flash, the training phases' beside them), the recurrentgemma and rwkv6 serves for the
+parities', the phases across ranks' summed over their ranks and, for
+flash, the training phases' beside them), the recurrentgemma and rwkv6 serves for the
 scans (with the training phases' beside them), and for the three trained
 kernels their launches per train step and grad_kernels' numbers - max abs
 error and tolerance, kernel / device / plain / bound / library times at
@@ -299,6 +332,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -3142,7 +3176,6 @@ def phase_train_parity(device="cuda") -> dict:
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.launch import serve
     from repro_torch.models import LM
-    from repro_torch.optim.adamw import leaves
 
     t_phase = time.perf_counter()
     out = {}
@@ -3163,9 +3196,7 @@ def phase_train_parity(device="cuda") -> dict:
         card_s = time.perf_counter() - t0
         launches = kernels.launch_counts()
         loss_rel = float(np.max(np.abs(np.subtract(losses, cpu_losses)) / np.abs(cpu_losses)))
-        worst = 0.0  # the largest |diff| / (1e-3 * max|leaf| + 1e-6) over the leaves
-        for a, b in zip(leaves(grads), leaves(cpu_grads)):
-            worst = max(worst, float((a - b).abs().max()) / (1e-3 * float(b.abs().max()) + 1e-6))
+        worst = _leaf_worst(grads, cpu_grads)
         per_step = _train_launches(cfg, seq)
         # step 1's gradients (one step's launches), then the steps
         want = {k: v * (TRAIN_PARITY_STEPS + 1) for k, v in per_step.items()}
@@ -3182,6 +3213,572 @@ def phase_train_parity(device="cuda") -> dict:
                                  f"{out[arch]}")
     info = {"phase": "train_parity", "archs": out, "phase_s": time.perf_counter() - t_phase}
     emit(info)
+    return info
+
+
+# --------------------------------------------------------------------- #
+# Across ranks: FSDP, compressed DP, GPipe over pod, serving over data
+# --------------------------------------------------------------------- #
+
+DIST_BACKEND = "gloo"  # one card: NCCL refuses two ranks on it
+DIST_MESH = ((2, 1), ("data", "model"))
+PP_MESH = ((2,), ("pod",))
+DIST_PARITY_ARCHS = ("qwen3-0.6b", "dbrx-132b")  # each at reduce_config(cfg, 8)
+DIST_PARITY_BATCH = (4, 64)  # global rows x seq of the train steps
+DIST_PARITY_STEPS = 3
+DIST_PARITY_PP_LAYERS = 4  # 2 stages of 2 (reduce 8 leaves 3 and 5 layers)
+DIST_PARITY_PROMPTS = ((4, 16), (2, 45))  # 64 MoE groups (each rank its own); 45 (straddling)
+DIST_PARITY_GEN = 8
+DIST_TRAIN = ("qwen3-0.6b", 8, 1024)  # arch, global batch, seq: the train phase's
+# Steps cut from the train phase's 4 to fit the script's time limit: at
+# full width a step moves 4.8 GB and a checkpoint 7.2 GB through
+# host-staged gloo (~0.5 GB/s on an H100 host: 8-13 s a step, PERF.md).
+FSDP_STEPS, FSDP_CKPT_AT = 2, 2  # then the resumed run takes step 2
+COMPRESSED_STEPS = 2
+DIST_FIRST_RTOL, DIST_LATER_RTOL = 1e-5, 1e-3  # step 1; later steps (AdamW eps 1e-8)
+PP_MICROBATCHES = 4  # of 2 x 1,024
+PP_LOSS_RTOL = 1e-5  # tests/test_pipeline.py's bound
+PP_GRAD_TOL = 1e-4  # of each leaf's largest magnitude
+DIST_TIMEOUT_S = 600
+
+
+def _free_card(device) -> None:
+    """Return the parent's cached blocks before ranks share the card."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _np_tree(tree):
+    from repro_torch.models.layers import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _on(tree, device):
+    import torch
+
+    from repro_torch.models.layers import tree_map
+
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def _dist_parity_rank(comm, inputs: dict) -> dict:
+    """Each arch of ``inputs`` on this rank: 3 FSDP steps, 3 compressed-DP
+    steps, the 2-stage pipeline's loss and gradients (on a pod mesh of the
+    same ranks) and ``serve_batch`` over ``data``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.comm import Comm
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+    from repro_torch.train import build_train_step, pipeline
+    from repro_torch.train.compressed_dp import build_compressed_dp_train_step
+    from repro_torch.train.steps import gather_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pod = Comm(make_mesh(*PP_MESH), comm.rank, comm.backend, comm.device)
+    out = {}
+
+    def opt():
+        cfg = AdamWConfig(**TRAIN_PARITY_ADAMW)
+        return AdamW(cfg, cosine_schedule(cfg.lr, warmup_steps=1, total_steps=DIST_PARITY_STEPS))
+
+    for arch, inp in inputs.items():
+        cfg = serve.reduce_config(configs.get_config(arch), 8)
+        lm = LM(cfg)
+        res = out[arch] = {}
+        o = opt()
+        step, sh, _ = build_train_step(lm, o, comm, remat=True)
+        state = o.init(sharding.shard_tree(_on(inp["params"], "cpu"), sh.params, comm.mesh,
+                                           comm.coords, comm.device))
+        res["fsdp_losses"], res["compressed_losses"] = [], []
+        for b in inp["batches"]:
+            state, metrics = step(state, b)
+            res["fsdp_losses"].append(float(metrics["loss"]))
+        full = gather_state(state, sh, comm)
+        del state
+        o = opt()
+        cstep, init, place = build_compressed_dp_train_step(lm, o, comm, remat=True)
+        cstate = place(init(_on(inp["params"], "cpu")))
+        for b in inp["batches"]:
+            cstate, loss = cstep(cstate, b)
+            res["compressed_losses"].append(float(loss))
+        if comm.rank == 0:
+            res["fsdp_params"], res["compressed_params"] = full.params, cstate.inner.params
+        del full, cstate
+        plm = LM(dataclasses.replace(cfg, n_layers=DIST_PARITY_PP_LAYERS))
+        pp = pipeline.build_pp_loss(plm, pod, n_microbatches=2)
+        res["pp_loss"], grads = pipeline.pp_value_and_grad(
+            pp, pipeline.stage_params(plm, _on(inp["pp_params"], comm.device), pod),
+            {"tokens": inp["batches"][0]["tokens"]}, pod)
+        res["pp_loss"] = float(res["pp_loss"])
+        res["pp_grads"] = grads
+        params = _on(inp["params"], comm.device)
+        res["serve"] = [serve.serve_batch(lm, params, p, DIST_PARITY_GEN, comm=comm,
+                                          return_logits=True) for p in inp["prompts"]]
+        del params
+    return out
+
+
+def _dist_parity_inputs() -> dict:
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    inputs = {}
+    for arch in DIST_PARITY_ARCHS:
+        cfg = serve.reduce_config(configs.get_config(arch), 8)
+        lm, plm = LM(cfg), LM(dataclasses.replace(cfg, n_layers=DIST_PARITY_PP_LAYERS))
+        B, S = DIST_PARITY_BATCH
+        data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                          seed=SEED + 1))
+        rng = np.random.default_rng(SEED)
+        inputs[arch] = {
+            "params": _np_tree(lm.init(torch.Generator().manual_seed(SEED), torch.float32)),
+            "pp_params": _np_tree(plm.init(torch.Generator().manual_seed(SEED + 1),
+                                           torch.float32)),
+            "batches": [data.batch(i) for i in range(DIST_PARITY_STEPS)],
+            "prompts": [rng.integers(0, cfg.vocab_size, shape) for shape in DIST_PARITY_PROMPTS],
+        }
+    return inputs
+
+
+def _leaf_worst(got, want) -> float:
+    """The largest |diff| / (1e-3 * max|leaf| + 1e-6) over the leaves."""
+    from repro_torch.optim.adamw import leaves
+
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want)):
+        worst = max(worst, float((a - b).abs().max()) / (1e-3 * float(b.abs().max()) + 1e-6))
+    return worst
+
+
+def _ranks_info(recs) -> dict:
+    from repro_torch.distributed.comm import summed_launches
+
+    return {"max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in recs],
+            "rank_s": [r["s"] for r in recs],
+            "launches": summed_launches(recs),
+            "launches_by_rank": [{k: v for k, v in r["launches"].items() if v}
+                                 for r in recs],
+            "comm_bytes_by_rank": [r["comm_bytes"] for r in recs]}
+
+
+def _compare_parity(card: list, cpu: list) -> dict:
+    """Per arch: the card ranks' results against the CPU ranks'."""
+    out = {}
+    for arch in DIST_PARITY_ARCHS:
+        a0, b0 = card[0][arch], cpu[0][arch]
+        row = {}
+        for kind in ("fsdp", "compressed"):
+            got = [r[arch][f"{kind}_losses"] for r in card]
+            want = b0[f"{kind}_losses"]
+            rel = max(float(np.max(np.abs(np.subtract(g, want)) / np.abs(want))) for g in got)
+            row[kind] = {"losses": got[0], "cpu_losses": want, "max_loss_rel_diff": rel,
+                         "max_param_diff_over_tolerance": _leaf_worst(a0[f"{kind}_params"],
+                                                                      b0[f"{kind}_params"])}
+            row[kind]["ok"] = (rel <= TRAIN_PARITY_LOSS_RTOL
+                               and row[kind]["max_param_diff_over_tolerance"] <= 1.0)
+        pp_rel = max(abs(r[arch]["pp_loss"] - b0["pp_loss"]) / abs(b0["pp_loss"]) for r in card)
+        pp_worst = max(_leaf_worst(r[arch]["pp_grads"], s[arch]["pp_grads"])
+                       for r, s in zip(card, cpu))
+        row["pp"] = {"loss": a0["pp_loss"], "cpu_loss": b0["pp_loss"], "loss_rel_diff": pp_rel,
+                     "max_grad_diff_over_tolerance": pp_worst,
+                     "ok": pp_rel <= TRAIN_PARITY_LOSS_RTOL and pp_worst <= 1.0}
+        serves = []
+        for (tok, logits), (ctok, clogits) in zip(a0["serve"], b0["serve"]):
+            diff, ok = _logit_diff(logits, clogits)
+            serves.append({"shape": list(tok.shape), "tokens_equal": bool((tok == ctok).all()),
+                           "max_logit_diff": diff, "ok": ok and bool((tok == ctok).all())})
+        row["serve"] = serves
+        out[arch] = row
+    return out
+
+
+def phase_dist_parity(device="cuda") -> dict:
+    """qwen3-0.6b and dbrx-132b at reduce 8 on two ranks sharing the card
+    (host-staged gloo), held against the same ranks on the CPU: 3 FSDP
+    steps and 3 compressed-DP steps (losses within rtol 1e-4, every
+    parameter leaf within 1e-3 * max|leaf| + 1e-6; AdamW as
+    TRAIN_PARITY_ADAMW), the 2-stage GPipe loss (rtol 1e-4) and its
+    gradients (the leaf rule), and the ``--mesh 2x1`` serve at 4 x 16 and
+    2 x 45 prompts (greedy tokens equal, logits within 2e-3 abs + rel).
+    Where two cards exist, the same with NCCL; else nothing is attempted."""
+    import torch
+
+    from repro_torch.distributed.comm import run_ranks, transport_name
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    _free_card(device)
+    inputs = _dist_parity_inputs()
+    mesh = make_mesh(*DIST_MESH)
+
+    def timed(**kw):
+        t0 = time.perf_counter()
+        recs = run_ranks(_dist_parity_rank, mesh, inputs, timeout_s=DIST_TIMEOUT_S, **kw)
+        return recs, time.perf_counter() - t0
+
+    # The CPU ranks (two processes of their own, their own store) run
+    # meanwhile: they share nothing with the card's ranks.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        on_cpu = pool.submit(timed, backend="gloo", device="cpu")
+        card, card_s = timed(backend=DIST_BACKEND, device=device)
+        cpu, cpu_s = on_cpu.result()
+    archs = _compare_parity([r["result"] for r in card], [r["result"] for r in cpu])
+    nccl = "not run: 1 card"
+    if device == "cuda" and torch.cuda.device_count() >= mesh.size:
+        recs = run_ranks(_dist_parity_rank, mesh, inputs, backend="nccl", device=device,
+                         timeout_s=DIST_TIMEOUT_S)
+        nccl = {"transport": transport_name("nccl", device, mesh.size), **_ranks_info(recs),
+                "archs": _compare_parity([r["result"] for r in recs],
+                                         [r["result"] for r in cpu])}
+    info = {"phase": "dist_parity", "transport": transport_name(DIST_BACKEND, device, mesh.size),
+            "reference_transport": transport_name("gloo", "cpu", mesh.size),
+            "config": {"reduce": 8, "batch": list(DIST_PARITY_BATCH),
+                       "steps": DIST_PARITY_STEPS, "pp_layers": DIST_PARITY_PP_LAYERS,
+                       "prompts": [list(p) for p in DIST_PARITY_PROMPTS],
+                       "gen": DIST_PARITY_GEN, "adamw": TRAIN_PARITY_ADAMW},
+            "archs": archs, **_ranks_info(card), "card_s": card_s, "cpu_s": cpu_s,
+            "nccl": nccl, "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    bad = [(arch, k) for arch, row in archs.items() for k, v in row.items()
+           if not (all(s["ok"] for s in v) if isinstance(v, list) else v["ok"])]
+    if isinstance(nccl, dict):
+        bad += [("nccl", arch, k) for arch, row in nccl["archs"].items() for k, v in row.items()
+                if not (all(s["ok"] for s in v) if isinstance(v, list) else v["ok"])]
+    if bad or (device == "cuda" and not info["launches"]["flash_attention"]):
+        raise AssertionError(f"dist_parity failed: {bad}")
+    return info
+
+
+def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int = 1,
+                     batch: int = DIST_TRAIN[1], seq: int = DIST_TRAIN[2]) -> dict:
+    """``launch.train.main --mesh 2x1 --dist-backend gloo``: qwen3-0.6b (at
+    full width with ``reduce`` 1, all 28 layers), the train phase's global
+    batches and seed, 2 steps and a checkpoint at 2, then a run resumed
+    from that checkpoint alone for step 2. Losses against the single-card
+    train phase's (``single``; run here at 1x1 where not given): step 1
+    within rtol 1e-5, the later ones (the resumed one included) 1e-3. Then
+    the elastic restart: the step-2 checkpoint restored on one rank
+    (``elastic_mesh(1, 1)``'s shardings) and one single-device step from
+    it, its loss against the resumed 2-rank run's (rtol 1e-5: the same
+    state, only the sums' order differs)."""
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.launch import serve, train as train_mod
+    from repro_torch.models import LM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import AdamW, AdamWConfig, TrainState, cosine_schedule
+    from repro_torch.train import build_train_step
+    from repro_torch.train.steps import train_state_shardings
+
+    t_phase = time.perf_counter()
+    _free_card(device)
+    arch = DIST_TRAIN[0]
+    root = ROOT / "build" / "ckpt_train_fsdp"
+    shutil.rmtree(root, ignore_errors=True)
+    # Every step lies in launch.train's 10-step warm-up, so its learning
+    # rate is the single-card run's whatever --steps says.
+    argv = ["--arch", arch, "--reduce", str(reduce), "--batch", str(batch), "--seq", str(seq),
+            "--ckpt-every", str(FSDP_CKPT_AT), "--log-every", "1", "--device", device]
+    dist = ["--mesh", "2x1", "--dist-backend", DIST_BACKEND]
+    try:
+        if single is None:
+            single = {"losses": train_mod.main(argv + ["--steps", str(TRAIN_STEPS)])}
+        first = {}
+        t0 = time.perf_counter()
+        losses = train_mod.main(argv + dist + ["--steps", str(FSDP_STEPS), "--ckpt-dir",
+                                               str(root / "a")], record=first)
+        first_s = time.perf_counter() - t0
+        os.makedirs(root / "b")
+        shutil.copytree(root / "a" / f"step_{FSDP_CKPT_AT:08d}",
+                        root / "b" / f"step_{FSDP_CKPT_AT:08d}")
+        resumed_rec = {}
+        t0 = time.perf_counter()
+        resumed = train_mod.main(argv + dist + ["--steps", str(FSDP_CKPT_AT + 1), "--ckpt-dir",
+                                                str(root / "b"), "--resume"], record=resumed_rec)
+        resume_s = time.perf_counter() - t0
+
+        # Elastic restart: the 2-rank checkpoint on one rank, one step on.
+        t0 = time.perf_counter()
+        cfg = serve.reduce_config(configs.get_config(arch), reduce)
+        lm = LM(cfg)
+        specs = lm.param_specs()
+        one = elastic_mesh(1, 1)
+        _, sh = train_state_shardings(lm, None, one, sharding.train_rules(False))
+        index = tree_map(lambda p, s: sharding.shard_index(s, p.shape, one, one.coords(0)),
+                         specs, sh.params)
+        state = CheckpointManager(str(root / "a")).restore(
+            TrainState(specs, specs, specs, 0), step=FSDP_CKPT_AT, device=device,
+            shardings=TrainState(index, index, index, ()))
+        lr = 3e-3  # launch.train's default
+        opt = AdamW(AdamWConfig(lr=lr), cosine_schedule(lr, warmup_steps=10,
+                                                         total_steps=FSDP_CKPT_AT + 1))
+        data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                          global_batch=batch))
+        b = {k: torch.as_tensor(v, device=device) for k, v in data.batch(FSDP_CKPT_AT).items()}
+        elastic_loss = float(build_train_step(lm, opt, remat=True)(state, b)[1]["loss"])
+        del state
+        elastic_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # Steps 0 .. FSDP_STEPS - 1, then the resumed step, against the single card's.
+    run = losses + resumed
+    want = single["losses"][:len(run)]
+    rel = np.abs(np.subtract(run, want)) / np.abs(want)
+    # One rank from the same restored state: only the forward's sums differ.
+    elastic_rel = abs(elastic_loss - resumed[0]) / abs(resumed[0])
+    steps = first["steps"]
+    step_s = float(np.median([r["s"] for r in steps[1:]]))  # a run's first step warms up
+    info = {"phase": "train_fsdp", "transport": first["transport"], "arch": arch,
+            "reduce": reduce, "batch": batch, "seq": seq, "steps": FSDP_STEPS,
+            "checkpoint_at": FSDP_CKPT_AT, "resumed_steps": len(resumed),
+            "params": first["n_params"], "losses": losses, "resumed_losses": resumed,
+            "single_card_losses": want, "loss_rel_diff": rel.tolist(),
+            "rtol": [DIST_FIRST_RTOL, DIST_LATER_RTOL],
+            "elastic": {"mesh": one.shape, "step": FSDP_CKPT_AT, "loss": elastic_loss,
+                        "rel_diff_to_resumed": elastic_rel, "rtol": DIST_FIRST_RTOL,
+                        "s": elastic_s},
+            "step_s": [r["s"] for r in steps + resumed_rec["steps"]], "step_ms": step_s * 1e3,
+            "single_card_step_ms": single.get("step_ms"),
+            "tokens_per_s": batch * seq / step_s,
+            "comm_bytes_per_step": steps[-1]["comm_bytes"],
+            "first_run_s": first_s, "resume_run_s": resume_s,
+            "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in first["ranks"]],
+            "launches": {k: sum(r["launches"][k] for r in first["ranks"])
+                         for k in first["ranks"][0]["launches"]},
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    ok = (rel[0] <= DIST_FIRST_RTOL and (rel[1:] <= DIST_LATER_RTOL).all()
+          and elastic_rel <= DIST_FIRST_RTOL and np.isfinite(run).all())
+    if device == "cuda":  # both ranks, every step of the first run
+        launches = {k: 2 * FSDP_STEPS * v for k, v in _train_launches(cfg, seq).items()}
+        ok = ok and all(info["launches"][k] == v for k, v in launches.items())
+    if not ok:
+        raise AssertionError(f"train_fsdp failed: {info}")
+    return info
+
+
+def _compressed_rank(comm, arch: str, reduce: int, batch: int, seq: int) -> dict:
+    """COMPRESSED_STEPS compressed-DP steps (remat) of ``arch`` from seed
+    0's weights on the global batches of ``launch.train``'s data and its
+    optimizer."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+    from repro_torch.optim.compression import payload_bytes
+    from repro_torch.train.compressed_dp import build_compressed_dp_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = serve.reduce_config(configs.get_config(arch), reduce)
+    lm = LM(cfg)
+    lr = 3e-3
+    opt = AdamW(AdamWConfig(lr=lr), cosine_schedule(lr, warmup_steps=10,
+                                                     total_steps=COMPRESSED_STEPS))
+    step, init, place = build_compressed_dp_train_step(lm, opt, comm, remat=True)
+    state = place(init(lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)))
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
+    losses, secs, moved = [], [], []
+    for i in range(COMPRESSED_STEPS):
+        before = dict(comm.bytes)
+        t0 = time.perf_counter()
+        state, loss = step(state, data.batch(i))
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+        moved.append({k: v - before.get(k, 0) for k, v in comm.bytes.items()})
+    return {"losses": losses, "step_s": secs, "comm_bytes": moved,
+            "payload": payload_bytes(state.inner.params)}
+
+
+def phase_train_compressed(fsdp: dict, device="cuda", reduce: int = 1,
+                           batch: int = DIST_TRAIN[1], seq: int = DIST_TRAIN[2]) -> dict:
+    """The compressed-DP step (int8 error feedback) on two ranks, the
+    train_fsdp phase's model and batches, 2 steps (cut from 4 for the time
+    limit): step ms (the second step's), the int32 payload's bytes against
+    the float32 gradients', losses beside FSDP's."""
+    from repro_torch.distributed.comm import run_ranks, transport_name
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    _free_card(device)
+    mesh = make_mesh(*DIST_MESH)
+    recs = run_ranks(_compressed_rank, mesh, DIST_TRAIN[0], reduce, batch, seq,
+                     backend=DIST_BACKEND, device=device, timeout_s=DIST_TIMEOUT_S)
+    r0 = recs[0]["result"]
+    step_s = float(np.median(r0["step_s"][1:]))
+    info = {"phase": "train_compressed", "transport": transport_name(DIST_BACKEND, device,
+                                                                     mesh.size),
+            "arch": DIST_TRAIN[0], "reduce": reduce, "batch": batch, "seq": seq,
+            "steps": COMPRESSED_STEPS, "remat": True, "losses": r0["losses"],
+            "fsdp_losses": fsdp["losses"] + fsdp["resumed_losses"], "step_s": r0["step_s"], "step_ms": step_s * 1e3,
+            "fsdp_step_ms": fsdp["step_ms"], "tokens_per_s": batch * seq / step_s,
+            "payload_bytes": r0["payload"], "comm_bytes_per_step": r0["comm_bytes"][-1],
+            **_ranks_info(recs), "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    if not (np.isfinite(r0["losses"]).all()
+            and all(r["result"]["losses"] == r0["losses"] for r in recs)):
+        raise AssertionError(f"train_compressed failed: {info}")
+    return info
+
+
+def _pp_rank(comm, arch: str, reduce: int, tokens, n_microbatches: int) -> dict:
+    """The 2-stage GPipe loss and this stage's gradients from seed 0's
+    weights; rank 1 leaves out the replicated leaves (rank 0's are equal)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm = LM(serve.reduce_config(configs.get_config(arch), reduce))
+    params = lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    sp = tree_map(lambda t: t.to(comm.device), pipeline.stage_params(lm, params, comm))
+    del params
+    t0 = time.perf_counter()
+    loss, grads = pipeline.pp_value_and_grad(
+        pipeline.build_pp_loss(lm, comm, n_microbatches=n_microbatches), sp,
+        {"tokens": tokens}, comm)
+    loss = float(loss)  # waits for the device
+    s = time.perf_counter() - t0
+    if comm.rank:
+        grads = {"blocks": grads["blocks"]}
+    return {"loss": loss, "grads": grads, "s": s}
+
+
+def phase_train_pp(device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
+                   seq: int = DIST_TRAIN[2], n_microbatches: int = PP_MICROBATCHES) -> dict:
+    """qwen3-0.6b (full width with ``reduce`` 1) as 2 GPipe stages of 14
+    layers over ``pod``, 4 microbatches of 2 x 1,024: the loss within
+    rtol 1e-5 of the serial loss on the same device (remat, the same
+    weights and tokens) and every gradient leaf within 1e-4 of its largest
+    magnitude; flash launches per rank."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed.comm import run_ranks, transport_name
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import loss_and_grads
+
+    t_phase = time.perf_counter()
+    _free_card(device)
+    arch = DIST_TRAIN[0]
+    cfg = serve.reduce_config(configs.get_config(arch), reduce)
+    lm = LM(cfg)
+    tokens = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                        global_batch=batch)).batch(0)["tokens"]
+    t0 = time.perf_counter()
+    params = tree_map(lambda t: t.to(device),
+                      lm.init(torch.Generator().manual_seed(0), dtype=torch.float32))
+    serial, grads = loss_and_grads(lm, params, {"tokens": torch.as_tensor(tokens, device=device)},
+                                   remat=True)
+    serial = float(serial)
+    grads = tree_map(lambda g: g.cpu(), grads)
+    serial_s = time.perf_counter() - t0
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    mesh = make_mesh(*PP_MESH)
+    recs = run_ranks(_pp_rank, mesh, arch, reduce, tokens, n_microbatches,
+                     backend=DIST_BACKEND, device=device, timeout_s=DIST_TIMEOUT_S)
+    half = cfg.n_superblocks // mesh.size
+    worst = 0.0
+    for r in recs:
+        got, s = r["result"]["grads"], r["rank"]
+        want = {**grads, "blocks": tree_map(lambda t: t[s * half:(s + 1) * half],
+                                            grads["blocks"])}
+        want = {k: want[k] for k in got}
+        for a, b in zip(leaves(got), leaves(want)):
+            worst = max(worst, float((a - b).abs().max()) / (PP_GRAD_TOL * float(b.abs().max())))
+    losses = [r["result"]["loss"] for r in recs]
+    rel = max(abs(x - serial) / abs(serial) for x in losses)
+    info = {"phase": "train_pp", "transport": transport_name(DIST_BACKEND, device, mesh.size),
+            "arch": arch, "reduce": reduce, "stages": mesh.size,
+            "layers_per_stage": half, "microbatches": n_microbatches,
+            "microbatch": [batch // n_microbatches, seq], "pp_loss": losses[0],
+            "serial_loss": serial, "loss_rel_diff": rel, "loss_rtol": PP_LOSS_RTOL,
+            "max_grad_diff_over_tolerance": worst, "grad_tol": PP_GRAD_TOL,
+            "pp_s": [r["result"]["s"] for r in recs], "serial_s": serial_s,
+            "flash_launches_by_rank": [r["launches"]["flash_attention"] for r in recs],
+            **_ranks_info(recs), "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    # Each stage runs its layers once per microbatch (no remat under PP).
+    want_flash = [half * n_microbatches] * mesh.size
+    if rel > PP_LOSS_RTOL or worst > 1.0 or (
+            device == "cuda" and info["flash_launches_by_rank"] != want_flash):
+        raise AssertionError(f"train_pp failed (flash launches expected {want_flash}): {info}")
+    return info
+
+
+def phase_serve_dp(served: Optional[dict] = None, device="cuda", reduce: int = 1,
+                   requests: int = SERVE_REQUESTS, prompt_len: int = SERVE_PROMPT,
+                   gen: int = SERVE_GEN) -> dict:
+    """``launch.serve --mesh 2x1 --dist-backend gloo`` of qwen3-0.6b (full
+    width with ``reduce`` 1): 8 requests of 1,024 prompt tokens, 64
+    generated, 4 on each rank (warmed up first). Prefill seconds, decode
+    ms a step and tokens/s of the slower rank, beside the single-card serve
+    phase's (``served``); launches exactly twice one rank's serve."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    _free_card(device)
+    rec = {}
+    tokens = serve.main(["--arch", SERVE_ARCH, "--reduce", str(reduce), "--requests",
+                         str(requests), "--prompt-len", str(prompt_len), "--gen", str(gen),
+                         "--device", device, "--mesh", "2x1", "--dist-backend", DIST_BACKEND],
+                        record=rec)
+    cfg = serve.reduce_config(configs.get_config(SERVE_ARCH), reduce)
+    t = [r["timings"] for r in rec["ranks"]]
+    prefill = max(x["prefill_s"] for x in t)
+    decode = max(x["decode_s"] for x in t)
+    step_ms = decode * 1e3 / t[0]["decode_steps"]
+    launches = {k: sum(r["launches"][k] for r in rec["ranks"]) for k in rec["ranks"][0]["launches"]}
+    per_rank = _serve_launches(cfg, prompt_len, gen)
+    info = {"phase": "serve_dp", "transport": rec["transport"], "arch": cfg.name,
+            "layers": cfg.n_layers, "requests": requests, "prompt_len": prompt_len, "gen": gen,
+            "prefill_s": prefill, "decode_ms_per_step": step_ms,
+            "tokens_per_s": requests * gen / (prefill + decode),
+            "timings_by_rank": t,
+            "single_card": None if served is None else {
+                k: served[k] for k in ("prefill_s", "decode_ms_per_step", "tokens_per_s")},
+            "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in rec["ranks"]],
+            "comm_bytes_by_rank": [r["comm_bytes"] for r in rec["ranks"]],
+            "launches": launches, "tokens_head": tokens[:2, :8].tolist(),
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    if tokens.shape != (requests, gen) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size \
+            or (device == "cuda" and any(launches[k] != 2 * v for k, v in per_rank.items())):
+        raise AssertionError(f"serve_dp failed (launches per rank {per_rank}): {info}")
     return info
 
 
@@ -3220,7 +3817,7 @@ def _training(name: str, grad: dict, trains: dict, parity: dict) -> dict:
 
 def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict, rec: dict,
                  rec_served: dict, rest: dict, grad: dict, trains: dict, parity: dict,
-                 families: dict, family_parity: dict) -> dict:
+                 families: dict, family_parity: dict, dist: dict) -> dict:
     """One entry per kernel at its main shape; ``rec_served`` maps an arch
     to its serve phase's output, ``rest`` the scheduler's later phases to
     theirs, ``trains`` the train phases to theirs. The scheduler's kernels
@@ -3228,7 +3825,7 @@ def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict,
     the later phases' beside them; the LM kernels in their serve, with the
     other serves' (``families``: the MoE and VLM ones, and their card
     against CPU runs in ``family_parity``) and the training phases' beside
-    it."""
+    it, and ``dist`` (the phases across ranks) theirs summed over the ranks."""
     entries = []
     for name, rows in kern.items():
         main = next(r for r in rows if tuple(r["shape"]) == MAIN_SHAPE)
@@ -3252,6 +3849,8 @@ def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict,
             extra = trained(name)
             by_phase.update(extra.pop("train_launches_by_phase"))
             entry.update(extra)
+        # The phases across ranks, summed over the ranks.
+        by_phase.update({p: out["launches"][name] for p, out in dist.items()})
         # The MoE and VLM serves' layer-0 (and first cross layer's) calls
         # against the plain version: GQA groups 6, 5, 4; the image cache.
         entry["checks_by_phase"] = {
@@ -3301,8 +3900,13 @@ def main() -> int:
     grad = phase_grad_kernels()
     trains = {phase: phase_train(phase, *run) for phase, run in TRAIN_RUNS.items()}
     parity = phase_train_parity()
+    dist = {"dist_parity": phase_dist_parity()}
+    dist["train_fsdp"] = phase_train_fsdp(trains["train"])
+    dist["train_compressed"] = phase_train_compressed(dist["train_fsdp"])
+    dist["train_pp"] = phase_train_pp()
+    dist["serve_dp"] = phase_serve_dp(served)
     emit(kernels_line(kern, full, dynamic, att, served, rec, rec_served, rest, grad, trains,
-                      parity, families, family_parity))
+                      parity, families, family_parity, dist))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

@@ -16,7 +16,8 @@ Layout:
                 wrapper + plain version + dispatch
   csrc/         the CUDA C++ sources, compiled for sm_90a by nvcc
   obs/          telemetry spans and counters, Chrome-trace and audit export
-  distributed/  straggler detection
+  distributed/  straggler detection, sharding rules, elastic meshes, and
+                comm: collectives by mesh axis on spawned ranks
   convert.py    reference objects -> port objects (duck-typed)
 
 Importing this package imports neither jax nor `repro`.

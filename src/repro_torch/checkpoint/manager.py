@@ -18,7 +18,13 @@ keys sorted, a `TrainState` as its children (params, mu, nu, step) under
 the indices 0-3, lists and tuples by index; a name joins the keys with
 ``/`` (``0/blocks/pos0_dense/attn/wq``). `restore` fills a template of the
 same structure in that order, as the reference does, and moves the leaves
-to ``device`` (the counterpart of the reference's ``shardings``).
+to ``device``. ``shardings`` is the counterpart of the reference's
+(``device_put`` of each leaf to its ``NamedSharding``): a tree of the same
+structure whose leaves are this rank's index into each leaf (from
+`repro_torch.distributed.sharding.shard_index`), so each rank of a mesh
+loads the host arrays and keeps its shard. Checkpoints always hold whole
+leaves (a mesh's rank 0 gathers and writes them), so a checkpoint written
+on one mesh restores on any other, and in the reference.
 """
 
 from __future__ import annotations
@@ -57,6 +63,16 @@ def _flatten_with_paths(tree, prefix=()):
     if kids is None:
         return [("/".join(str(p) for p in prefix), tree)]
     return [pair for k, v in kids for pair in _flatten_with_paths(v, prefix + (k,))]
+
+
+def _flatten_like(template, tree):
+    """``tree``'s values at ``template``'s leaves (a leaf of ``tree`` may
+    itself be a tuple, such as an index)."""
+    kids = _children(template)
+    if kids is None:
+        return [tree]
+    values = _children(tree)
+    return [x for (_, t), (_, v) in zip(kids, values) for x in _flatten_like(t, v)]
 
 
 def _unflatten(template, it):
@@ -164,10 +180,11 @@ class CheckpointManager:
         step: Optional[int] = None,
         device=None,
         verify: bool = True,
+        shardings: Any = None,
     ) -> Any:
         """Load into the structure of ``template`` (its leaves' values are
         not read: parameter specs do) as tensors on ``device`` (CPU if
-        None)."""
+        None); with ``shardings``, each leaf's ``arr[index]`` only."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -187,9 +204,16 @@ class CheckpointManager:
                 raise IOError(f"checksum mismatch in {rec['name']} @ step {step}")
             return arr
 
+        index = (_flatten_like(template, shardings) if shardings is not None
+                 else [()] * n_leaves)
+
+        def part(arr, ix):  # ascontiguousarray would turn a 0-d leaf into 1-d
+            a = arr[ix]
+            return torch.from_numpy(np.ascontiguousarray(a) if a.ndim else np.asarray(a))
+
         with _pool() as pool:
-            leaves = [torch.from_numpy(arr).to(device or "cpu")
-                      for arr in pool.map(load, manifest["leaves"])]
+            leaves = [part(arr, ix).to(device or "cpu")
+                      for arr, ix in zip(pool.map(load, manifest["leaves"]), index)]
         return _unflatten(template, iter(leaves))
 
     # ------------------------------------------------------------- GC

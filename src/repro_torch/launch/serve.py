@@ -12,11 +12,18 @@ and ``LM.decode_step``. Parameters are float32 and
 the cache bf16 (recurrent states float32), as the reference's ``main`` and
 ``prefill`` have them. Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's default;
-``main`` sets it). Multi-device serving (the reference's ``--mesh``) is a
-ROADMAP item.
+``main`` sets it).
+
+``--mesh DxM`` with M == 1 spawns D ranks (`repro_torch.distributed.comm`),
+each serving its rows of the requests under `serve_rules` (parameters
+replicated), and gathers the tokens in request order; rank 0 prints.
+``--dist-backend`` names the transport: ``nccl`` (the default) needs a
+card per rank, ``gloo`` stages each exchange through host memory (so two
+ranks can share one card). M > 1 (tensor parallelism) is a ROADMAP.md
+item.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduce 8 \
-      --requests 4 --prompt-len 32 --gen 16
+      --requests 4 --prompt-len 32 --gen 16 [--mesh 2x1 --dist-backend gloo]
 
 Without ``--device cpu`` it runs on the card and raises if there is none.
 The weights are drawn from seed 0 on the CPU whatever the device, so the
@@ -34,10 +41,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import configs
+from .. import configs, kernels
 from ..device import resolve_device
+from ..distributed import comm as dist_comm
+from ..distributed import sharding
 from ..models import LM
 from ..models.layers import tree_map
+from .mesh import parse_mesh
 
 
 def reduce_config(cfg, factor: int):
@@ -96,6 +106,7 @@ def serve_batch(
     seed: int = 0,
     timings: Optional[dict] = None,
     return_logits: bool = False,
+    comm=None,
 ):
     """Prefill + decode ``gen_tokens`` for a batch on the parameters' device;
     returns (B, gen) int32 tokens (and, with ``return_logits``, the (B, gen,
@@ -104,7 +115,15 @@ def serve_batch(
     With a ``timings`` dict, the device is synchronised after the prefill
     and after the last step, and ``prefill_s``, ``decode_s`` and
     ``decode_steps`` are written into it (host clock).
+
+    With ``comm`` (a rank of a mesh, the reference's ``mesh``), the rank
+    serves its rows of ``prompts`` (split over the batch axes, as
+    ``batch_spec_tree`` shards them; all rows where they do not divide)
+    and the outputs are all-gathered in request order.
     """
+    if comm is not None:
+        return _serve_sharded(lm, params, prompts, gen_tokens, comm, temperature=temperature,
+                              seed=seed, timings=timings, return_logits=return_logits)
     device = params["embed"].device
     B, P = prompts.shape
     s_max = P + gen_tokens
@@ -142,7 +161,62 @@ def serve_batch(
     return tokens_out
 
 
-def main(argv=None):
+def _serve_sharded(lm, params, prompts, gen_tokens, comm, *, temperature, seed, timings,
+                   return_logits):
+    rules = sharding.serve_rules("pod" in comm.mesh.shape)
+    baxes = sharding.batch_axes(comm.mesh, rules)
+    prompts = np.asarray(prompts)
+    if prompts.shape[0] % comm.axis_size(baxes):
+        # The reference's batch spec falls back to replication: every rank
+        # serves every request, and nothing is gathered.
+        return serve_batch(lm, params, prompts, gen_tokens, temperature=temperature, seed=seed,
+                           timings=timings, return_logits=return_logits)
+    rows = dist_comm.rank_rows(prompts.shape[0], comm, baxes)
+    with sharding.activation_ctx(comm, rules):
+        out = serve_batch(lm, params, prompts[rows], gen_tokens, temperature=temperature,
+                          seed=seed, timings=timings, return_logits=return_logits)
+    outs = out if return_logits else (out,)
+    gathered = tuple(comm.all_gather(torch.from_numpy(np.ascontiguousarray(o)), baxes).numpy()
+                     for o in outs)
+    return gathered if return_logits else gathered[0]
+
+
+def _serve_rank(comm, args, record: bool):
+    """One rank of ``main``'s ``--mesh`` run: the weights from seed 0 drawn
+    on the CPU (every rank the same), its rows served on its device."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_config(configs.get_config(args.arch), args.reduce)
+    lm = LM(cfg)
+    params = tree_map(lambda t: t.to(comm.device),
+                      lm.init(torch.Generator().manual_seed(0), dtype=torch.float32))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                size=(args.requests, args.prompt_len))
+    timings = {}
+    if record:
+        # Timed runs start warm (libraries, allocator): a short serve first,
+        # its kernel launches not counted.
+        serve_batch(lm, params, prompts[:, :min(64, args.prompt_len)], 4, comm=comm)
+        kernels.reset_launch_counts()
+    t0 = time.time()
+    tokens = serve_batch(lm, params, prompts, args.gen, temperature=args.temperature,
+                         timings=timings if record else None, comm=comm)
+    dt = time.time() - t0
+    if comm.rank == 0:
+        total = args.requests * args.gen
+        print(f"[serve] arch={cfg.name} mesh={comm.mesh.shape} device={comm.device} generated "
+              f"{total} tokens in {dt:.2f}s ({total/dt:.1f} tok/s)", flush=True)
+        for r in range(min(2, args.requests)):
+            print(f"[serve] req{r}: {tokens[r].tolist()}", flush=True)
+    return {"tokens": tokens, "timings": timings, "s": dt}
+
+
+def main(argv=None, *, record: Optional[dict] = None):
+    """Serves the requests; returns the (requests, gen) tokens. With
+    ``--mesh`` other than 1x1 and a ``record`` dict, each rank first serves
+    a short warm-up, and ``record["ranks"]`` receives each rank's timings
+    (prefill and decode seconds, device synchronised), seconds, kernel
+    launches (the timed serve's), peak memory and bytes moved, and
+    ``record["transport"]`` the transport."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduce", type=int, default=8)
@@ -151,7 +225,26 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; MODEL must be 1")
+    ap.add_argument("--dist-backend", default="nccl", choices=dist_comm.BACKENDS,
+                    help="transport between the ranks of a --mesh run")
     args = ap.parse_args(argv)
+
+    mesh = parse_mesh(args.mesh)
+    if mesh.shape["model"] > 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the model axis (tensor parallelism) is not ported yet "
+            "(ROADMAP.md, module queue); use --mesh Dx1")
+    if mesh.size > 1:
+        recs = dist_comm.run_ranks(_serve_rank, mesh, args, record is not None,
+                                   backend=args.dist_backend, device=args.device)
+        if record is not None:
+            record["transport"] = dist_comm.transport_name(args.dist_backend, args.device,
+                                                           mesh.size)
+            record["ranks"] = [{"timings": r["result"]["timings"], "s": r["result"]["s"],
+                                **{k: r[k] for k in ("launches", "max_memory_allocated",
+                                                     "comm_bytes")}} for r in recs]
+        return recs[0]["result"]["tokens"]
 
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 projections stay f32

@@ -14,7 +14,23 @@ The final checkpoint is written once: where the loop's last periodic save
 was already of the final step, `main` waits for it instead of writing
 the same state again (the reference writes it twice). Without ``--device
 cpu`` it runs on the card and raises if there is none.
-Multi-device meshes (``--mesh`` other than 1x1) are not ported yet.
+
+``--mesh DxM`` with M == 1 spawns D ranks (`repro_torch.distributed.comm`;
+one JAX process drives all its devices, so the launcher starts its ranks
+itself) that run the FSDP-sharded step (`build_train_step` with a
+``comm``): each rank stores its shards of the state, takes its rows of
+``data.batch(step)``, the global batch (the reference's pjit shards the
+global batch; ``batch(step, host_id, n_hosts)`` is another stream), and
+rank 0 prints the reference's lines. Checkpoints hold whole leaves (all
+ranks gather, rank 0 writes), and ``--resume`` gives each rank its shard
+of them, so a run resumes on any mesh, and in the reference.
+``--dist-backend`` names the transport: ``nccl`` (the default) needs a
+card per rank, ``gloo`` stages each exchange through host memory (two
+ranks can share one card). M > 1 (tensor parallelism) is a ROADMAP.md
+item; ``--mesh 1x1`` is the single-device path.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh 2x1 \
+      --dist-backend gloo --reduce 8 --steps 4 --batch 4 --seq 64
 """
 
 from __future__ import annotations
@@ -30,11 +46,15 @@ from .. import configs
 from ..checkpoint import CheckpointManager
 from ..data import DataConfig, SyntheticLMData
 from ..device import resolve_device
+from ..distributed import comm as dist_comm
+from ..distributed import sharding
 from ..models import LM
 from ..models.layers import tree_map
 from ..optim import AdamW, AdamWConfig, TrainState, cosine_schedule
 from ..optim.adamw import leaves
 from ..train import build_train_step
+from ..train.steps import gather_state
+from .mesh import parse_mesh
 from .serve import reduce_config
 
 
@@ -54,16 +74,29 @@ def main(argv=None, *, record: Optional[dict] = None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--data-mode", default="markov")
-    ap.add_argument("--mesh", default="1x1", help="dataxmodel; only 1x1 is ported")
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; MODEL must be 1")
+    ap.add_argument("--dist-backend", default="nccl", choices=dist_comm.BACKENDS,
+                    help="transport between the ranks of a --mesh run")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh != "1x1":
+    mesh = parse_mesh(args.mesh)
+    if mesh.shape["model"] > 1:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-device training (FSDP x TP sharding) is not "
-            "ported yet (ROADMAP.md, module queue); use --mesh 1x1"
-        )
+            f"--mesh {args.mesh}: the model axis (tensor parallelism) is not ported yet "
+            "(ROADMAP.md, module queue); use --mesh Dx1")
+    if mesh.size > 1:
+        recs = dist_comm.run_ranks(_train_rank, mesh, args, backend=args.dist_backend,
+                                   device=args.device)
+        if record is not None:
+            record.update(recs[0]["result"]["record"])
+            record["transport"] = dist_comm.transport_name(args.dist_backend, args.device,
+                                                           mesh.size)
+            record["ranks"] = [{k: r[k] for k in ("s", "launches", "max_memory_allocated",
+                                                  "comm_bytes")} for r in recs]
+        return recs[0]["result"]["losses"]
+
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
     cfg = reduce_config(configs.get_config(args.arch), args.reduce)
@@ -129,6 +162,79 @@ def main(argv=None, *, record: Optional[dict] = None):
     print(f"[train] done: first-10 mean loss {np.mean(losses[:10]):.4f} -> "
           f"last-10 mean {np.mean(losses[-10:]):.4f}")
     return losses
+
+
+def _train_rank(comm, args):
+    """One rank of ``main``'s ``--mesh`` run; returns its losses and, per
+    step, loss, grad norm, host seconds and bytes moved."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh, lead = comm.mesh, comm.rank == 0
+    cfg = reduce_config(configs.get_config(args.arch), args.reduce)
+    lm = LM(cfg)
+    opt = AdamW(
+        AdamWConfig(lr=args.lr),
+        schedule=cosine_schedule(args.lr, warmup_steps=10, total_steps=args.steps),
+    )
+    step_fn, shardings, _ = build_train_step(lm, opt, comm, remat=True)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                      global_batch=args.batch, mode=args.data_mode))
+
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    specs = lm.param_specs()
+    start_step, state = 0, None
+    if ckpt and args.resume and ckpt.latest_step() is not None:
+        index = tree_map(lambda p, spec: sharding.shard_index(spec, p.shape, mesh, comm.coords),
+                         specs, shardings.params)
+        state = ckpt.restore(TrainState(specs, specs, specs, 0), device=comm.device,
+                             shardings=TrainState(index, index, index, ()))
+        start_step = int(state.step)
+        if lead:
+            print(f"[train] resumed from step {start_step}", flush=True)
+    if state is None:
+        params = lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+        state = opt.init(sharding.shard_tree(params, shardings.params, mesh, comm.coords,
+                                             comm.device))
+        del params
+
+    n_params = sum(int(np.prod(p.shape)) for p in leaves(specs))
+    if lead:
+        print(f"[train] arch={cfg.name} params={n_params/1e6:.1f}M mesh={mesh.shape} "
+              f"steps={args.steps}", flush=True)
+    rec = {"n_params": n_params, "steps": []}
+
+    def save(step, **kw):
+        host = gather_state(state, shardings, comm)  # every rank takes part
+        if lead:
+            ckpt.save(step, host, **kw)
+
+    losses = []
+    t0 = time.time()
+    for step in range(start_step, args.steps):
+        moved = dict(comm.bytes)
+        t_step = time.perf_counter()
+        state, metrics = step_fn(state, data.batch(step))
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        rec["steps"].append({"step": step, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                             "s": time.perf_counter() - t_step,
+                             "comm_bytes": {k: v - moved.get(k, 0)
+                                            for k, v in comm.bytes.items()}})
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
+            dt = time.time() - t0
+            print(f"[train] step={step} loss={loss:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} ({dt:.1f}s)", flush=True)
+        if ckpt and (step + 1) % args.ckpt_every == 0:
+            save(step + 1)
+    if ckpt:
+        if start_step < args.steps and args.steps % args.ckpt_every == 0:
+            if lead:
+                ckpt.wait()  # the loop's last save is this step's: written once
+        else:
+            save(args.steps, blocking=True)
+    if lead:
+        print(f"[train] done: first-10 mean loss {np.mean(losses[:10]):.4f} -> "
+              f"last-10 mean {np.mean(losses[-10:]):.4f}", flush=True)
+    return {"losses": losses, "record": rec}
 
 
 if __name__ == "__main__":

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distributed import sharding
 from ..kernels.rglru_scan import ops as rglru_ops
 from ..kernels.rwkv6_scan import ops as rwkv_ops
 from . import attention
@@ -366,21 +367,41 @@ def _moe_combine(out_buf, meta, shape, dtype):
 def moe_apply(cfg, p, x):
     """Top-k token-choice MoE with group-local dispatch.
 
-    The B * S tokens split into G = the largest divisor of B * S up to
-    ``MOE_GROUPS`` groups; each expert takes at most cap = cf * Tg * K / E
-    (+ 1) pairs of a group (Switch-style), the rest are dropped. This is
-    the reference's single-device path; its shard_map over the batch axes
-    and the sharding constraints come with the multi-device slice.
+    The tokens of the global batch split into G = the largest divisor of
+    their count up to ``MOE_GROUPS`` groups; each expert takes at most cap
+    = cf * Tg * K / E (+ 1) pairs of a group (Switch-style), the rest are
+    dropped. On one device the global batch is ``x``. On a rank of a mesh
+    (under `activation_ctx`) ``x`` holds this rank's rows of it, and the
+    groups stay the global batch's, as the reference's condition picks:
+    where the batch axes' size d divides G, rank r's T / d tokens are
+    exactly groups [r * G / d, (r + 1) * G / d) and it dispatches them
+    alone (the reference's ``shard_map`` branch); otherwise groups straddle
+    ranks, so the rank all-gathers the tokens over the batch axes, runs the
+    global dispatch and keeps its own rows (the reference runs it on the
+    global array). Taking G from the local token count instead would
+    change the groups, the capacity and the drops.
     """
     B, S, D = x.shape
-    T = B * S
+    T_local = B * S
+    ctx = sharding.current()
+    comm, baxes = (ctx[0], sharding.batch_axes(ctx[0].mesh, ctx[1])) if ctx else (None, ())
+    bsize = comm.axis_size(baxes) if comm is not None else 1
+    T = T_local * bsize
     G = _largest_divisor_leq(T, MOE_GROUPS)
     Tg = T // G
-    xt = x.reshape(G, Tg, D)
+    straddle = bsize > 1 and G % bsize != 0
+    if straddle:
+        xt = comm.all_gather(x.reshape(T_local, D), baxes).reshape(G, Tg, D)
+    else:
+        xt = x.reshape(G // bsize, Tg, D)
     buf, meta = _moe_dispatch(cfg, p["router"], xt)
-    out = _moe_combine(_moe_experts(cfg, p, buf), meta, (G, Tg, D), xt.dtype)
+    out = _moe_combine(_moe_experts(cfg, p, buf), meta, tuple(xt.shape), xt.dtype)
+    out = out.reshape(-1, D)
+    if straddle:
+        i = comm.axis_index(baxes)
+        out = out[i * T_local:(i + 1) * T_local]
     if cfg.shared_expert:
-        out = out + ffn_apply(cfg, p["shared"], xt)
+        out = out + ffn_apply(cfg, p["shared"], x.reshape(T_local, D))
     return out.reshape(B, S, D)
 
 

@@ -36,7 +36,11 @@ With ``remat`` each superblock runs under
 input is kept, and the backward recomputes it (the reference's
 ``jax.checkpoint(nothing_saveable)`` around its scan body); the remainder
 layers run outside it, as in the reference. Sharding constraints have no
-counterpart on one card.
+counterpart: a rank computes on its own rows. Under
+`repro_torch.distributed.sharding.activation_ctx` (a rank of a mesh),
+``loss`` divides the rank's masked CE sum by the count over the global
+batch (all-reduced over the batch axes), so the ranks' losses add up to
+the reference's mean over the global batch, whatever each shard's mask.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..distributed import sharding
 from . import blocks
 from .layers import Param, init_params, rms_norm, stack_specs, tree_map
 
@@ -175,6 +180,12 @@ class LM:
                 t, n = checkpoint(ce_chunk, h[:, c : c + chunk], tgt_next[:, c : c + chunk],
                                   pos_mask[:, c : c + chunk], use_reentrant=False)
                 total, count = total + t, count + n
+        ctx = sharding.current()
+        if ctx is not None:
+            # One rank's rows of a global batch: its share of the global
+            # mean, over the global count (the ranks' shares then add up).
+            comm, rules = ctx
+            count = comm.all_reduce(count.detach(), sharding.batch_axes(comm.mesh, rules))
         return total / torch.clamp(count, min=1.0)
 
     # ------------------------------------------------------------- decode
@@ -183,22 +194,31 @@ class LM:
                    device="cuda"):
         """Zeroed decode cache. ``dtype`` overrides the bf16 defaults (tests
         use float32 for exact prefill -> decode equivalence)."""
-        cfg = self.cfg
         device = resolve_device(device)
 
         def zeros(shape, dt):
             dt = dtype if (dtype is not None and dt == torch.bfloat16) else dt
             return torch.zeros(shape, dtype=dt, device=device)
 
+        return self._cache_tree(batch, s_max, zeros)
+
+    def cache_spec_tree(self, batch: int, s_max: int):
+        """Meta tensors shaped as `init_cache`'s (nothing is allocated)."""
+        return self._cache_tree(batch, s_max,
+                                lambda shape, dt: torch.empty(shape, dtype=dt, device="meta"))
+
+    def _cache_tree(self, batch: int, s_max: int, make):
+        """The cache's structure, each entry ``make(shape, dtype)``."""
+        cfg = self.cfg
         cache: Dict[str, Any] = {"blocks": {}}
         for i, kind in enumerate(cfg.pattern):
             spec = blocks.cache_spec(kind, cfg, batch, s_max)
             cache["blocks"][f"pos{i}_{kind}"] = {
-                k: zeros((cfg.n_superblocks,) + shape, dt) for k, (shape, dt) in spec.items()
+                k: make((cfg.n_superblocks,) + shape, dt) for k, (shape, dt) in spec.items()
             }
         for j, kind in enumerate(cfg.remainder):
             spec = blocks.cache_spec(kind, cfg, batch, s_max)
-            cache[f"rem{j}_{kind}"] = {k: zeros(shape, dt) for k, (shape, dt) in spec.items()}
+            cache[f"rem{j}_{kind}"] = {k: make(shape, dt) for k, (shape, dt) in spec.items()}
         return cache
 
     def decode_step(self, params, batch, cache, lengths):

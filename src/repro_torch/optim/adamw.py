@@ -67,12 +67,15 @@ class AdamW:
         return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(grads)))
 
     @torch.no_grad()
-    def apply(self, state: TrainState, grads) -> TrainState:
+    def apply(self, state: TrainState, grads, gnorm: Optional[torch.Tensor] = None) -> TrainState:
+        """``gnorm``: the gradients' global norm where ``grads`` are shards
+        of them (a sharded train step computes it across its ranks)."""
         cfg = self.cfg
         step = state.step + 1
         lr = self.schedule(step)
 
-        gnorm = self.global_norm(grads)
+        if gnorm is None:
+            gnorm = self.global_norm(grads)
         if cfg.grad_clip_norm is not None:
             # A true division: ``float / tensor`` would multiply by a reciprocal.
             clip = torch.full_like(gnorm, cfg.grad_clip_norm)

@@ -1,8 +1,5 @@
-"""Training steps (port of `repro.train` on one device).
-
-The GPipe pipeline (`repro.train.pipeline`), compressed data parallelism
-(`repro.train.compressed_dp`) and the mesh-sharded train and serve steps belong to
-the multi-device slices of the port (ROADMAP.md, module queue).
-"""
+"""Training steps (port of `repro.train`): the train step on one device
+and FSDP-sharded on a mesh (`steps`), compressed data parallelism
+(`compressed_dp`) and the GPipe pipeline over ``pod`` (`pipeline`)."""
 
 from .steps import build_train_step, loss_and_grads  # noqa: F401

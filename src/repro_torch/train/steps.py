@@ -1,19 +1,47 @@
-"""The train step on one device (port of `repro.train.steps.build_train_step`
-without its mesh and shardings): loss -> gradients -> AdamW.
+"""Train and serve steps (port of `repro.train.steps`).
 
-Gradients come from ``torch.autograd.grad`` of `LM.loss` with respect to
-detached copies of the parameters' tensors (the same storage), so the
-optimizer then updates the state in place. With ``remat`` each superblock
-is recomputed in the backward (`LM.hidden_states`). ``grad_accum > 1``
-splits the batch's dim 0 into ``grad_accum`` microbatches, sums their
-float32 gradients and losses, and divides both by ``grad_accum``, as the
+On one device (``comm=None``): loss -> gradients -> AdamW. Gradients come
+from ``torch.autograd.grad`` of `LM.loss` with respect to detached copies
+of the parameters' tensors (the same storage), so the optimizer then
+updates the state in place. With ``remat`` each superblock is recomputed
+in the backward (`LM.hidden_states`). ``grad_accum > 1`` splits the
+batch's dim 0 into ``grad_accum`` microbatches, sums their float32
+gradients and losses, and divides both by ``grad_accum``, as the
 reference's scan over microbatches does.
+
+On a mesh (``comm``: the rank's `repro_torch.distributed.comm.Comm`, the
+counterpart of the reference's ``mesh``), meshes whose ``model`` axis is
+1 (the ``model`` axis is a ROADMAP.md item):
+
+- storage: each rank holds only its shard of params, mu and nu, as
+  `spec_for` under `train_rules` gives it (FSDP: the embed dim over
+  ``data``); `param_shardings` / `train_state_shardings` give the specs
+  without allocating anything;
+- compute: the step all-gathers every leaf over ``data``, computes the
+  loss and gradients of this rank's rows of the global batch under
+  `activation_ctx` (so `LM.loss` divides by the global count and MoE
+  groups are the global batch's), and reduce-scatters the float32
+  gradients back to shards (all-reducing over batch axes a leaf is not
+  sharded on, e.g. ``pod``);
+- optimizer: the global norm from the shards' sums of squares,
+  all-reduced; AdamW elementwise on the shards.
+
+The step takes the global batch, as the reference's jitted step does, and
+slices this rank's rows (for ``grad_accum``: of each microbatch).
+
+`build_decode_step` / `build_prefill_step` run `LM.decode_step` /
+`LM.prefill` on this rank's rows under `serve_rules` (params replicated
+with ``model == 1``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ..distributed import sharding as shd
+from ..distributed.comm import rank_rows
 from ..models import LM
 from ..models.layers import tree_map
 from ..optim import AdamW, TrainState
@@ -31,10 +59,118 @@ def loss_and_grads(lm: LM, params, batch, *, remat: bool = True):
     return loss.detach().float(), tree_map(lambda t: grads[id(t)], live)
 
 
-def build_train_step(lm: LM, optimizer: AdamW, *, remat: bool = True, grad_accum: int = 1):
-    """``step(state, batch) -> (state, {"loss", "grad_norm", "step"})``; the
-    state is updated in place and returned."""
+def _check_mesh(mesh) -> None:
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"{mesh}: the model axis (tensor parallelism) is not ported yet "
+            "(ROADMAP.md, module queue); use a mesh with model == 1")
 
+
+def param_shardings(lm: LM, mesh, rules):
+    """Spec tree of the parameters (from their `Param` specs: nothing is
+    allocated)."""
+    specs = lm.param_specs()
+    return shd.tree_shardings(tree_map(lambda p: p.axes, specs), specs, mesh, rules)
+
+
+def train_state_shardings(lm: LM, optimizer: AdamW, mesh, rules):
+    """(state_shapes, state_shardings): `Param` specs and spec trees; mu and
+    nu share the parameter layout (fully sharded), the step is replicated."""
+    specs = lm.param_specs()
+    ps = param_shardings(lm, mesh, rules)
+    return TrainState(specs, specs, specs, None), TrainState(ps, ps, ps, ())
+
+
+def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: bool = True,
+                     grad_accum: int = 1, multi_pod: Optional[bool] = None):
+    """One device: ``step(state, batch) -> (state, {"loss", "grad_norm",
+    "step"})``, the state updated in place and returned. On a mesh:
+    ``(step, state_shardings, batch_shardings)`` as the reference returns,
+    ``step`` taking this rank's shards of the state (``opt.init`` of
+    `repro_torch.distributed.sharding.shard_tree` of the params) and the
+    global batch."""
+    if comm is None:
+        return _single_device_step(lm, optimizer, remat, grad_accum)
+    mesh = comm.mesh
+    _check_mesh(mesh)
+    if multi_pod is None:
+        multi_pod = "pod" in mesh.shape
+    rules = rules or shd.train_rules(multi_pod)
+    _, state_shardings = train_state_shardings(lm, optimizer, mesh, rules)
+    specs = state_shardings.params
+    baxes = shd.batch_axes(mesh, rules)
+
+    def sync(g, spec):
+        """The full gradient's sum over the ranks, reduced to this rank's
+        shard: reduce-scatter over the sharded axes, all-reduce over the
+        other batch axes."""
+        found = shd.sharded_dim(spec, mesh)
+        axes = found[1] if found else ()
+        if found:
+            g = comm.reduce_scatter(g, axes, found[0])
+        rest = tuple(a for a in baxes if a not in axes)
+        return comm.all_reduce(g, rest) if rest else g
+
+    def global_norm(grads):
+        """sqrt of the squares of the sharded leaves (all-reduced over their
+        axes) plus those of the replicated ones."""
+        parts = {}
+        for g, spec in zip(leaves(grads), leaves(specs)):
+            found = shd.sharded_dim(spec, mesh)
+            key = found[1] if found else ()
+            parts[key] = parts.get(key, 0.0) + torch.sum(torch.square(g.float()))
+        total = 0.0
+        for axes, part in parts.items():
+            total = total + (comm.all_reduce(part, axes) if axes else part)
+        return torch.sqrt(total)
+
+    def micro_batch(batch, i):
+        n = next(iter(batch.values())).shape[0]
+        per = n // grad_accum
+        out = {}
+        for k, v in batch.items():
+            mb = v[i * per:(i + 1) * per]
+            out[k] = torch.as_tensor(mb[rank_rows(per, comm, baxes)], device=comm.device)
+        return out
+
+    def step(state: TrainState, batch):
+        full = tree_map(lambda t, spec: shd.gather_leaf(t, spec, comm), state.params, specs)
+        loss, grads = 0.0, None
+        with shd.activation_ctx(comm, rules):
+            for i in range(grad_accum):
+                l, g = loss_and_grads(lm, full, micro_batch(batch, i), remat=remat)
+                loss = loss + l
+                grads = g if grads is None else tree_map(lambda a, b: a + b.float(), grads, g)
+        del full
+        if grad_accum > 1:
+            # A tensor divisor: on CUDA a Python one is a reciprocal multiply.
+            n = torch.tensor(float(grad_accum), device=comm.device)
+            loss = loss / n
+            grads = tree_map(lambda g: g / n, grads)
+        grads = tree_map(lambda g, spec: sync(g.float(), spec), grads, specs)
+        loss = comm.all_reduce(loss, baxes)  # each rank's share of the global mean
+        gnorm = global_norm(grads)
+        new_state = optimizer.apply(state, grads, gnorm=gnorm)
+        return new_state, {"loss": loss.float(), "grad_norm": gnorm, "step": new_state.step}
+
+    def batch_shardings(batch_tree):
+        return shd.batch_spec_tree(batch_tree, mesh, rules)
+
+    return step, state_shardings, batch_shardings
+
+
+def gather_state(state: TrainState, state_shardings: TrainState, comm, device="cpu") -> TrainState:
+    """The whole state from the ranks' shards, leaf by leaf onto ``device``
+    (every rank takes part; a checkpoint's writer is rank 0)."""
+    def whole(tree, specs):
+        return tree_map(lambda t, spec: shd.gather_leaf(t, spec, comm).to(device), tree, specs)
+
+    return TrainState(whole(state.params, state_shardings.params),
+                      whole(state.mu, state_shardings.mu), whole(state.nu, state_shardings.nu),
+                      state.step.to(device))
+
+
+def _single_device_step(lm: LM, optimizer: AdamW, remat: bool, grad_accum: int):
     def step(state: TrainState, batch):
         if grad_accum == 1:
             loss, grads = loss_and_grads(lm, state.params, batch, remat=remat)
@@ -63,3 +199,55 @@ def build_train_step(lm: LM, optimizer: AdamW, *, remat: bool = True, grad_accum
         return new_state, metrics
 
     return step
+
+
+# ----------------------------------------------------------------- serving
+
+
+def _serve_rules(comm, rules, multi_pod):
+    _check_mesh(comm.mesh)
+    if multi_pod is None:
+        multi_pod = "pod" in comm.mesh.shape
+    return rules or shd.serve_rules(multi_pod)
+
+
+def build_decode_step(lm: LM, comm, rules=None, *, multi_pod: Optional[bool] = None):
+    """Returns (step, shardings dict): ``step(params, batch, cache,
+    lengths)`` is `LM.decode_step` on this rank's rows (cache written in
+    place)."""
+    rules = _serve_rules(comm, rules, multi_pod)
+    mesh = comm.mesh
+
+    def serve_step(params, batch, cache, lengths):
+        with shd.activation_ctx(comm, rules):
+            return lm.decode_step(params, batch, cache, lengths)
+
+    def cache_shardings(cache_tree):
+        return shd.tree_shardings(shd.cache_axes_tree(cache_tree), cache_tree, mesh, rules)
+
+    return serve_step, {
+        "params": param_shardings(lm, mesh, rules),
+        "cache": cache_shardings,
+        "batch": lambda tree: shd.batch_spec_tree(tree, mesh, rules),
+        "rules": rules,
+    }
+
+
+def build_prefill_step(lm: LM, comm, rules=None, *, s_max: int, batch_size: int,
+                       multi_pod: Optional[bool] = None):
+    """Returns (step, shardings dict): ``step(params, batch)`` is
+    `LM.prefill` on this rank's rows; ``batch_size`` is the global one."""
+    rules = _serve_rules(comm, rules, multi_pod)
+    mesh = comm.mesh
+
+    def prefill_step(params, batch):
+        with shd.activation_ctx(comm, rules):
+            return lm.prefill(params, batch, s_max=s_max)
+
+    cache_tree = lm.cache_spec_tree(batch_size, s_max)
+    return prefill_step, {
+        "params": param_shardings(lm, mesh, rules),
+        "cache": shd.tree_shardings(shd.cache_axes_tree(cache_tree), cache_tree, mesh, rules),
+        "batch": lambda tree: shd.batch_spec_tree(tree, mesh, rules),
+        "rules": rules,
+    }

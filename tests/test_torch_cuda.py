@@ -4,7 +4,8 @@ included; the attention kernels within 2e-5 in f32 and 2e-2 with 16-bit
 inputs, the order of the sums differing; the scans within 1e-5 (RG-LRU)
 and 1e-4 (RWKV-6) in f32, as tests/test_kernels_scans.py), the kernels'
 input checks, a small replay and small serves on CUDA against the same on
-CPU.
+CPU, and two spawned ranks on the card (gloo, host-staged; NCCL where two
+cards exist) against the same ranks on the CPU.
 
 Marked ``cuda``; every test skips without a CUDA device. On the card:
 
@@ -1094,3 +1095,74 @@ def test_small_train_step_card_equals_cpu(cuda):
         for a, b in zip(leaves(card[1]), leaves(cpu[1])):
             torch.testing.assert_close(a.cpu(), b, rtol=0,
                                        atol=tol * float(b.abs().max()) + 1e-6)
+
+
+def _rank_runs(device, backend):
+    """Two ranks of a 2x1 mesh: the collectives, 2 FSDP steps, a
+    compressed-DP step, the 2-stage pipeline's loss and gradients and a
+    ``--mesh 2x1`` serve of a tiny dbrx (straddling MoE groups)."""
+    import torch_rank_programs as progs
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed.comm import run_ranks, summed_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+
+    tiny = dict(arch="qwen3-0.6b", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                head_dim=16, d_ff=128, vocab_size=512)
+    moe = dict(tiny, arch="dbrx-132b", n_experts=4, experts_per_token=2, d_ff=96)
+    params = {k: layers.tree_map(lambda t: t.numpy(), progs.lm_of(**kw).init(
+        torch.Generator().manual_seed(0), torch.float32)) for k, kw in (("tiny", tiny),
+                                                                        ("moe", moe))}
+    data = SyntheticLMData(DataConfig(vocab_size=512, seq_len=64, global_batch=4))
+    batches = [data.batch(i) for i in range(2)]
+    prompts = [np.random.default_rng(1).integers(0, 512, (2, 45))]
+    jobs = [("collectives", {}),
+            ("fsdp", dict(program="fsdp_steps", arch_kw=tiny, params=params["tiny"],
+                          batches=batches, lr=0.3, eps=1.0)),
+            ("compressed", dict(program="compressed_steps", arch_kw=tiny,
+                                params=params["tiny"], batches=batches[:1], lr=3e-3)),
+            ("pp", dict(program="pp_grads", arch_kw=dict(tiny, n_layers=4),
+                        params=layers.tree_map(lambda t: t.numpy(), progs.lm_of(
+                            **dict(tiny, n_layers=4)).init(torch.Generator().manual_seed(1),
+                                                           torch.float32)),
+                        tokens=batches[0]["tokens"], n_microbatches=2,
+                        mesh=((2,), ("pod",)))),
+            ("serve", dict(program="serve", arch_kw=moe, params=params["moe"],
+                           prompts=prompts, gen=4))]
+    recs = run_ranks(progs.run_jobs, make_mesh((2, 1), ("data", "model")), jobs,
+                     backend=backend, device=device, timeout_s=300)
+    return [r["result"] for r in recs], summed_launches(recs)
+
+
+def _same_runs(card, cpu):
+    for a, b in zip(card, cpu):
+        assert a["collectives"] == b["collectives"]
+        np.testing.assert_allclose(a["fsdp"]["losses"], b["fsdp"]["losses"], rtol=1e-4)
+        np.testing.assert_allclose(a["compressed"]["losses"], b["compressed"]["losses"],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(a["pp"]["loss"], b["pp"]["loss"], rtol=1e-5)
+        for g, h in zip(a["pp"]["grads"]["blocks"]["pos0_dense"]["attn"].values(),
+                        b["pp"]["grads"]["blocks"]["pos0_dense"]["attn"].values()):
+            assert float((g - h).abs().max()) <= 1e-4 * float(h.abs().max()) + 1e-8
+        np.testing.assert_array_equal(a["serve"][0]["tokens"], b["serve"][0]["tokens"])
+        np.testing.assert_allclose(a["serve"][0]["logits"], b["serve"][0]["logits"],
+                                   rtol=2e-3, atol=2e-3)
+
+
+def test_two_gloo_ranks_on_the_card_equal_cpu_ranks(cuda):
+    """Two ranks sharing the card through host-staged gloo against the
+    same run with its ranks on the CPU; the kernels ran on the card."""
+    card, launches = _rank_runs("cuda", "gloo")
+    cpu, cpu_launches = _rank_runs("cpu", "gloo")
+    _same_runs(card, cpu)
+    assert launches["flash_attention"] > 0 and launches["decode_attention"] > 0
+    assert cpu_launches["flash_attention"] == 0
+
+
+def test_nccl_ranks_on_two_cards_equal_cpu_ranks(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs one card per rank: fewer than 2 cards")
+    card, launches = _rank_runs("cuda", "nccl")
+    cpu, _ = _rank_runs("cpu", "gloo")
+    _same_runs(card, cpu)
+    assert launches["flash_attention"] > 0

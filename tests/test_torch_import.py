@@ -93,6 +93,10 @@ def test_training_imports_leave_jax_and_reference_out():
 def test_launcher_imports_leave_jax_and_reference_out():
     code = (
         "import sys, repro_torch.launch.schedule, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.train, repro_torch.distributed.comm\n"
+        "import repro_torch.distributed.sharding, repro_torch.distributed.elastic\n"
+        "import repro_torch.optim.compression, repro_torch.train.compressed_dp\n"
+        "import repro_torch.train.pipeline\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -107,8 +111,10 @@ def test_launcher_imports_leave_jax_and_reference_out():
 
 
 def test_every_reference_training_module_of_the_slice_has_a_counterpart():
-    for pkg, names in (("optim", ("adamw.py", "schedule.py")), ("data", ("pipeline.py",)),
-                       ("checkpoint", ("manager.py",)), ("train", ("steps.py",)),
+    for pkg, names in (("optim", ("adamw.py", "schedule.py", "compression.py")),
+                       ("data", ("pipeline.py",)), ("checkpoint", ("manager.py",)),
+                       ("train", ("steps.py", "compressed_dp.py", "pipeline.py")),
+                       ("distributed", ("sharding.py", "elastic.py", "straggler.py")),
                        ("launch", ("train.py", "serve.py", "schedule.py", "mesh.py"))):
         for name in names:
             assert (ROOT / "src" / "repro" / pkg / name).exists(), (pkg, name)
