@@ -288,15 +288,19 @@ exits non-zero; nothing is caught):
 18. train_fsdp - ``launch.train --mesh 2x1 --dist-backend gloo``, qwen3-0.6b
               full width, the train phase's 8 x 1,024 batches: 2 steps, a
               checkpoint at 2, a run resumed from it for step 2 (steps cut
-              from 4: each moves 4.8 GB through host-staged gloo); losses
+              from 4: each moves 4.8 GB through host-staged gloo), whose
+              final checkpoint (step 3) is restored on one rank
+              (`elastic_mesh(1, 1)`) for the fourth step; the four losses
               against the train phase's (step 1 rtol 1e-5, later 1e-3);
-              the checkpoint restored on one rank (`elastic_mesh(1, 1)`)
-              and stepped once, its loss within 1e-5 of the resumed run's;
               step ms, bytes gathered and reduce-scattered a step, each
               rank's peak memory, launches summed over the ranks.
 19. train_compressed - the compressed-DP step on two ranks, the same model
               and batches, 2 steps: step ms, the int32 payload's bytes
-              against the float32 gradients', losses beside FSDP's.
+              against the float32 gradients', losses beside FSDP's; step
+              1's loss within rtol 1e-5 of the train phase's, and the norm
+              of the synchronised step-1 gradient within the error
+              feedback's bound (the ranks' mean residual norm) of the
+              train phase's exact gradient norm.
 20. train_pp - qwen3-0.6b full width as 2 GPipe stages of 14 layers over
               ``pod``, 4 microbatches of 2 x 1,024: the loss within rtol
               1e-5 of the serial loss on the card, every gradient leaf
@@ -304,7 +308,10 @@ exits non-zero; nothing is caught):
               rank.
 21. serve_dp - ``launch.serve --mesh 2x1 --dist-backend gloo``, qwen3-0.6b
               full width, 8 requests of 1,024 + 64: prefill s, decode ms a
-              step and tokens/s beside the serve phase's; exact launches.
+              step and tokens/s beside the serve phase's; exact launches;
+              tokens and logits held to ``launch.serve --mesh 1x1`` of the
+              same weights (logits within 2e-3 up to where the greedy runs
+              first part, if they do).
 
 Then a ``{"kernels": [...]}`` line (one entry per kernel: route, source,
 the TPU kernel it replaces, launches in the run of its main path - the
@@ -3282,7 +3289,7 @@ def _dist_parity_rank(comm, inputs: dict) -> dict:
     from repro_torch.train.steps import gather_state
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    pod = Comm(make_mesh(*PP_MESH), comm.rank, comm.backend, comm.device)
+    pod = Comm(make_mesh(*PP_MESH), comm.rank, backend=comm.backend, device=comm.device)
     out = {}
 
     def opt():
@@ -3466,13 +3473,12 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
     """``launch.train.main --mesh 2x1 --dist-backend gloo``: qwen3-0.6b (at
     full width with ``reduce`` 1, all 28 layers), the train phase's global
     batches and seed, 2 steps and a checkpoint at 2, then a run resumed
-    from that checkpoint alone for step 2. Losses against the single-card
-    train phase's (``single``; run here at 1x1 where not given): step 1
-    within rtol 1e-5, the later ones (the resumed one included) 1e-3. Then
-    the elastic restart: the step-2 checkpoint restored on one rank
-    (``elastic_mesh(1, 1)``'s shardings) and one single-device step from
-    it, its loss against the resumed 2-rank run's (rtol 1e-5: the same
-    state, only the sums' order differs)."""
+    from that checkpoint alone for step 2, which ends in its checkpoint at
+    3. Then the elastic restart: that step-3 checkpoint (written by two
+    ranks) restored on one rank (``elastic_mesh(1, 1)``'s shardings) and
+    the fourth step taken on one device. The four losses against the
+    single-card train phase's (``single``; run here at 1x1 where not
+    given): step 1 within rtol 1e-5, the later ones 1e-3."""
     import shutil
 
     import torch
@@ -3501,7 +3507,10 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
     dist = ["--mesh", "2x1", "--dist-backend", DIST_BACKEND]
     try:
         if single is None:
-            single = {"losses": train_mod.main(argv + ["--steps", str(TRAIN_STEPS)])}
+            one_card = {}
+            single = {"losses": train_mod.main(argv + ["--steps", str(TRAIN_STEPS)],
+                                               record=one_card)}
+            single["grad_norms"] = [r["grad_norm"] for r in one_card["steps"]]
         first = {}
         t0 = time.perf_counter()
         losses = train_mod.main(argv + dist + ["--steps", str(FSDP_STEPS), "--ckpt-dir",
@@ -3516,7 +3525,8 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
                                                 str(root / "b"), "--resume"], record=resumed_rec)
         resume_s = time.perf_counter() - t0
 
-        # Elastic restart: the 2-rank checkpoint on one rank, one step on.
+        # Elastic restart: the resumed run's final checkpoint on one rank,
+        # one step on.
         t0 = time.perf_counter()
         cfg = serve.reduce_config(configs.get_config(arch), reduce)
         lm = LM(cfg)
@@ -3525,27 +3535,28 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
         _, sh = train_state_shardings(lm, None, one, sharding.train_rules(False))
         index = tree_map(lambda p, s: sharding.shard_index(s, p.shape, one, one.coords(0)),
                          specs, sh.params)
-        state = CheckpointManager(str(root / "a")).restore(
-            TrainState(specs, specs, specs, 0), step=FSDP_CKPT_AT, device=device,
+        elastic_at = FSDP_CKPT_AT + 1
+        state = CheckpointManager(str(root / "b")).restore(
+            TrainState(specs, specs, specs, 0), step=elastic_at, device=device,
             shardings=TrainState(index, index, index, ()))
+        elastic_step = int(state.step)
         lr = 3e-3  # launch.train's default
         opt = AdamW(AdamWConfig(lr=lr), cosine_schedule(lr, warmup_steps=10,
-                                                         total_steps=FSDP_CKPT_AT + 1))
+                                                         total_steps=elastic_at + 1))
         data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                           global_batch=batch))
-        b = {k: torch.as_tensor(v, device=device) for k, v in data.batch(FSDP_CKPT_AT).items()}
+        b = {k: torch.as_tensor(v, device=device) for k, v in data.batch(elastic_at).items()}
         elastic_loss = float(build_train_step(lm, opt, remat=True)(state, b)[1]["loss"])
         del state
         elastic_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # Steps 0 .. FSDP_STEPS - 1, then the resumed step, against the single card's.
-    run = losses + resumed
+    # Steps 0 .. FSDP_STEPS - 1, the resumed step and the elastic one,
+    # against the single card's.
+    run = losses + resumed + [elastic_loss]
     want = single["losses"][:len(run)]
     rel = np.abs(np.subtract(run, want)) / np.abs(want)
-    # One rank from the same restored state: only the forward's sums differ.
-    elastic_rel = abs(elastic_loss - resumed[0]) / abs(resumed[0])
     steps = first["steps"]
     step_s = float(np.median([r["s"] for r in steps[1:]]))  # a run's first step warms up
     info = {"phase": "train_fsdp", "transport": first["transport"], "arch": arch,
@@ -3553,9 +3564,9 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
             "checkpoint_at": FSDP_CKPT_AT, "resumed_steps": len(resumed),
             "params": first["n_params"], "losses": losses, "resumed_losses": resumed,
             "single_card_losses": want, "loss_rel_diff": rel.tolist(),
+            "single_card_grad_norms": single["grad_norms"],
             "rtol": [DIST_FIRST_RTOL, DIST_LATER_RTOL],
-            "elastic": {"mesh": one.shape, "step": FSDP_CKPT_AT, "loss": elastic_loss,
-                        "rel_diff_to_resumed": elastic_rel, "rtol": DIST_FIRST_RTOL,
+            "elastic": {"mesh": one.shape, "restored_step": elastic_step, "loss": elastic_loss,
                         "s": elastic_s},
             "step_s": [r["s"] for r in steps + resumed_rec["steps"]], "step_ms": step_s * 1e3,
             "single_card_step_ms": single.get("step_ms"),
@@ -3567,8 +3578,9 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
                          for k in first["ranks"][0]["launches"]},
             "phase_s": time.perf_counter() - t_phase}
     emit(info)
-    ok = (rel[0] <= DIST_FIRST_RTOL and (rel[1:] <= DIST_LATER_RTOL).all()
-          and elastic_rel <= DIST_FIRST_RTOL and np.isfinite(run).all())
+    ok = (len(run) == len(want) and rel[0] <= DIST_FIRST_RTOL
+          and (rel[1:] <= DIST_LATER_RTOL).all() and elastic_step == elastic_at
+          and np.isfinite(run).all())
     if device == "cuda":  # both ranks, every step of the first run
         launches = {k: 2 * FSDP_STEPS * v for k, v in _train_launches(cfg, seq).items()}
         ok = ok and all(info["launches"][k] == v for k, v in launches.items())
@@ -3580,7 +3592,9 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
 def _compressed_rank(comm, arch: str, reduce: int, batch: int, seq: int) -> dict:
     """COMPRESSED_STEPS compressed-DP steps (remat) of ``arch`` from seed
     0's weights on the global batches of ``launch.train``'s data and its
-    optimizer."""
+    optimizer. After the first step: the global norm of the synchronised
+    gradient that AdamW was given, and the mean over the ranks of the
+    norm of each rank's new error-feedback residual."""
     import torch
 
     from repro_torch import configs
@@ -3588,15 +3602,23 @@ def _compressed_rank(comm, arch: str, reduce: int, batch: int, seq: int) -> dict
     from repro_torch.launch import serve
     from repro_torch.models import LM
     from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+    from repro_torch.optim.adamw import leaves
     from repro_torch.optim.compression import payload_bytes
     from repro_torch.train.compressed_dp import build_compressed_dp_train_step
+
+    class NormKeeping(AdamW):
+        """AdamW that keeps the global norm of the gradients it is given."""
+
+        def global_norm(self, grads):
+            self.norm = super().global_norm(grads)
+            return self.norm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = serve.reduce_config(configs.get_config(arch), reduce)
     lm = LM(cfg)
     lr = 3e-3
-    opt = AdamW(AdamWConfig(lr=lr), cosine_schedule(lr, warmup_steps=10,
-                                                     total_steps=COMPRESSED_STEPS))
+    opt = NormKeeping(AdamWConfig(lr=lr), cosine_schedule(lr, warmup_steps=10,
+                                                           total_steps=COMPRESSED_STEPS))
     step, init, place = build_compressed_dp_train_step(lm, opt, comm, remat=True)
     state = place(init(lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)))
     data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
@@ -3608,8 +3630,13 @@ def _compressed_rank(comm, arch: str, reduce: int, batch: int, seq: int) -> dict
         losses.append(float(loss))
         secs.append(time.perf_counter() - t0)
         moved.append({k: v - before.get(k, 0) for k, v in comm.bytes.items()})
+        if i == 0:
+            synced_norm = float(opt.norm)
+            err = torch.sqrt(sum(torch.sum(torch.square(e)) for e in leaves(state.error)))
+            error_norm = float(comm.all_reduce(err, "data")) / comm.axis_size("data")
     return {"losses": losses, "step_s": secs, "comm_bytes": moved,
-            "payload": payload_bytes(state.inner.params)}
+            "payload": payload_bytes(state.inner.params), "synced_norm": synced_norm,
+            "error_norm": error_norm}
 
 
 def phase_train_compressed(fsdp: dict, device="cuda", reduce: int = 1,
@@ -3617,7 +3644,14 @@ def phase_train_compressed(fsdp: dict, device="cuda", reduce: int = 1,
     """The compressed-DP step (int8 error feedback) on two ranks, the
     train_fsdp phase's model and batches, 2 steps (cut from 4 for the time
     limit): step ms (the second step's), the int32 payload's bytes against
-    the float32 gradients', losses beside FSDP's."""
+    the float32 gradients', losses beside FSDP's. Held to the single-card
+    train phase (``fsdp["single_card_*"]``): step 1's loss within rtol
+    1e-5 (compression acts only on the update), and the norm of the
+    synchronised step-1 gradient within the error feedback's own bound of
+    the exact mean gradient's norm. The synchronised sum is mean(g) -
+    mean(e) for the ranks' new residuals e, so the two norms differ by at
+    most mean_r |e_r| (plus 1e-3 of the norm for float sums): a wrong
+    scale or a missing rank's share breaks it."""
     from repro_torch.distributed.comm import run_ranks, transport_name
     from repro_torch.launch.mesh import make_mesh
 
@@ -3628,17 +3662,27 @@ def phase_train_compressed(fsdp: dict, device="cuda", reduce: int = 1,
                      backend=DIST_BACKEND, device=device, timeout_s=DIST_TIMEOUT_S)
     r0 = recs[0]["result"]
     step_s = float(np.median(r0["step_s"][1:]))
+    exact_loss, exact_norm = fsdp["single_card_losses"][0], fsdp["single_card_grad_norms"][0]
+    loss_rel = abs(r0["losses"][0] - exact_loss) / abs(exact_loss)
+    norm_gap = abs(r0["synced_norm"] - exact_norm)
+    norm_bound = r0["error_norm"] + 1e-3 * exact_norm
     info = {"phase": "train_compressed", "transport": transport_name(DIST_BACKEND, device,
                                                                      mesh.size),
             "arch": DIST_TRAIN[0], "reduce": reduce, "batch": batch, "seq": seq,
             "steps": COMPRESSED_STEPS, "remat": True, "losses": r0["losses"],
             "fsdp_losses": fsdp["losses"] + fsdp["resumed_losses"], "step_s": r0["step_s"], "step_ms": step_s * 1e3,
             "fsdp_step_ms": fsdp["step_ms"], "tokens_per_s": batch * seq / step_s,
+            "single_card_first_loss": exact_loss, "first_loss_rel_diff": loss_rel,
+            "first_loss_rtol": DIST_FIRST_RTOL,
+            "first_grad_norm": {"synced": r0["synced_norm"], "single_card": exact_norm,
+                                "gap": norm_gap, "bound": norm_bound,
+                                "mean_error_norm": r0["error_norm"]},
             "payload_bytes": r0["payload"], "comm_bytes_per_step": r0["comm_bytes"][-1],
             **_ranks_info(recs), "phase_s": time.perf_counter() - t_phase}
     emit(info)
     if not (np.isfinite(r0["losses"]).all()
-            and all(r["result"]["losses"] == r0["losses"] for r in recs)):
+            and all(r["result"]["losses"] == r0["losses"] for r in recs)
+            and loss_rel <= DIST_FIRST_RTOL and norm_gap <= norm_bound):
         raise AssertionError(f"train_compressed failed: {info}")
     return info
 
@@ -3746,17 +3790,26 @@ def phase_serve_dp(served: Optional[dict] = None, device="cuda", reduce: int = 1
     width with ``reduce`` 1): 8 requests of 1,024 prompt tokens, 64
     generated, 4 on each rank (warmed up first). Prefill seconds, decode
     ms a step and tokens/s of the slower rank, beside the single-card serve
-    phase's (``served``); launches exactly twice one rank's serve."""
+    phase's (``served``); launches exactly twice one rank's serve. Held to
+    ``launch.serve --mesh 1x1`` on the card (the same seed-0 weights and
+    prompts; the serve phase draws its weights on the card, so they
+    differ): in each request, the tokens up to where the two runs first
+    part and the logits up to and including that step within PARITY_TOL
+    (abs + rel). Two greedy runs part only where the logits they disagree
+    on are that close, a near tie; a wrong gather order parts at step 0
+    with logits far apart."""
     from repro_torch import configs
     from repro_torch.launch import serve
 
     t_phase = time.perf_counter()
     _free_card(device)
-    rec = {}
-    tokens = serve.main(["--arch", SERVE_ARCH, "--reduce", str(reduce), "--requests",
-                         str(requests), "--prompt-len", str(prompt_len), "--gen", str(gen),
-                         "--device", device, "--mesh", "2x1", "--dist-backend", DIST_BACKEND],
-                        record=rec)
+    argv = ["--arch", SERVE_ARCH, "--reduce", str(reduce), "--requests", str(requests),
+            "--prompt-len", str(prompt_len), "--gen", str(gen), "--device", device]
+    rec, one = {}, {}
+    tokens = serve.main(argv + ["--mesh", "2x1", "--dist-backend", DIST_BACKEND], record=rec)
+    one_tokens = serve.main(argv + ["--mesh", "1x1"], record=one)
+    agree = _greedy_agreement(tokens, rec.pop("logits"), one_tokens, one.pop("logits"))
+    _free_card(device)
     cfg = serve.reduce_config(configs.get_config(SERVE_ARCH), reduce)
     t = [r["timings"] for r in rec["ranks"]]
     prefill = max(x["prefill_s"] for x in t)
@@ -3774,12 +3827,28 @@ def phase_serve_dp(served: Optional[dict] = None, device="cuda", reduce: int = 1
             "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in rec["ranks"]],
             "comm_bytes_by_rank": [r["comm_bytes"] for r in rec["ranks"]],
             "launches": launches, "tokens_head": tokens[:2, :8].tolist(),
-            "phase_s": time.perf_counter() - t_phase}
+            "against_one_card": agree, "phase_s": time.perf_counter() - t_phase}
     emit(info)
     if tokens.shape != (requests, gen) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size \
+            or not agree["ok"] \
             or (device == "cuda" and any(launches[k] != 2 * v for k, v in per_rank.items())):
         raise AssertionError(f"serve_dp failed (launches per rank {per_rank}): {info}")
     return info
+
+
+def _greedy_agreement(tokens, logits, ref_tokens, ref_logits) -> dict:
+    """Two greedy runs of the same requests: per request, the first step
+    where the tokens differ (none: all equal), and the logits up to and
+    including it within PARITY_TOL (abs + rel) of the reference's."""
+    parted, worst, ok = [], 0.0, tokens.shape == ref_tokens.shape
+    for r in range(ref_tokens.shape[0]):
+        differ = np.flatnonzero(tokens[r] != ref_tokens[r]) if ok else [0]
+        upto = int(differ[0]) + 1 if len(differ) else ref_tokens.shape[1]
+        diff, close = _logit_diff(logits[r, :upto], ref_logits[r, :upto])
+        parted.append(int(differ[0]) if len(differ) else None)
+        worst, ok = max(worst, diff), ok and close
+    return {"tokens_equal": all(d is None for d in parted), "first_differing_step": parted,
+            "max_logit_diff": worst, "tolerance": PARITY_TOL, "ok": ok}
 
 
 def _entry(name: str, main: dict, launches: int) -> dict:

@@ -88,13 +88,17 @@ def _axes(mesh, axis) -> Tuple[str, ...]:
 
 
 class Comm:
-    """One rank of a mesh: its coordinates, device and process groups."""
+    """One rank of a mesh: its coordinates, device and process groups. The
+    transport is named (``backend``, no default) and the device is the
+    card unless ``device="cpu"``, as for every entry point."""
 
-    def __init__(self, mesh, rank: int, backend: str = "gloo", device="cpu"):
+    def __init__(self, mesh, rank: int, *, backend: str, device="cuda"):
+        if backend not in BACKENDS:
+            raise ValueError(f"dist backend {backend!r}: use one of {BACKENDS}")
         self.mesh = mesh
         self.rank = rank
         self.backend = backend
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.coords = mesh.coords(rank)
         self.bytes: Dict[str, int] = collections.Counter()
         self._groups: Dict[Tuple[str, ...], Tuple[Any, List[int]]] = {}
@@ -280,7 +284,7 @@ def _rank_main(rank: int, mesh, backend: str, device: str, workdir: str,
 
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: the loopback
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    if device == "cuda":
+    if resolve_device(device).type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -291,7 +295,7 @@ def _rank_main(rank: int, mesh, backend: str, device: str, workdir: str,
                             world_size=mesh.size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        comm = Comm(mesh, rank, backend, dev)
+        comm = Comm(mesh, rank, backend=backend, device=dev)
         kernels.reset_launch_counts()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -313,7 +317,7 @@ def _rank_main(rank: int, mesh, backend: str, device: str, workdir: str,
 
 def transport_name(backend: str, device: str, n_ranks: int) -> str:
     """How a run's ranks exchange, e.g. 'gloo, host-staged, 2 ranks on cuda:0'."""
-    if device == "cpu":
+    if resolve_device(device).type == "cpu":
         return f"{backend}, {n_ranks} ranks on cpu"
     cards = sorted({r % max(1, torch.cuda.device_count()) for r in range(n_ranks)})
     where = ", ".join(f"cuda:{c}" for c in cards)
@@ -321,7 +325,7 @@ def transport_name(backend: str, device: str, n_ranks: int) -> str:
     return f"{backend}, {staged}{n_ranks} ranks on {where}"
 
 
-def run_ranks(fn: Callable, mesh, *args, backend: str = "gloo", device: str = "cpu",
+def run_ranks(fn: Callable, mesh, *args, backend: str, device: str = "cuda",
               timeout_s: float = 600.0) -> List[dict]:
     """Run ``fn(comm, *args)`` on one spawned process per position of
     ``mesh``; returns each rank's record in rank order: ``result`` (what
@@ -329,8 +333,10 @@ def run_ranks(fn: Callable, mesh, *args, backend: str = "gloo", device: str = "c
     launches), ``max_memory_allocated``, ``comm_bytes`` and ``s``.
 
     ``fn`` and ``args`` are pickled: ``fn`` must be a module-level function
-    of a module that the rank can import. Raises what a rank raised, or
-    `TimeoutError` after ``timeout_s`` (every rank is then killed)."""
+    of a module that the rank can import. ``backend`` has no default (see
+    `check_transport`); the ranks compute on the card unless ``device`` is
+    ``"cpu"``. Raises what a rank raised, or `TimeoutError` after
+    ``timeout_s`` (every rank is then killed)."""
     check_transport(backend, device, mesh.size)
     if resolve_device(device).type == "cuda":
         from ..kernels import KERNELS, build

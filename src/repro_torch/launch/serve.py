@@ -15,7 +15,8 @@ the cache bf16 (recurrent states float32), as the reference's ``main`` and
 ``main`` sets it).
 
 ``--mesh DxM`` with M == 1 spawns D ranks (`repro_torch.distributed.comm`),
-each serving its rows of the requests under `serve_rules` (parameters
+each serving its rows of the requests through the train package's
+`build_prefill_step` / `build_decode_step` (`serve_rules`, parameters
 replicated), and gathers the tokens in request order; rank 0 prints.
 ``--dist-backend`` names the transport: ``nccl`` (the default) needs a
 card per rank, ``gloo`` stages each exchange through host memory (so two
@@ -47,6 +48,7 @@ from ..distributed import comm as dist_comm
 from ..distributed import sharding
 from ..models import LM
 from ..models.layers import tree_map
+from ..train import steps as train_steps
 from .mesh import parse_mesh
 
 
@@ -54,7 +56,8 @@ def reduce_config(cfg, factor: int):
     """Scale a config down by ~factor in width/depth (CPU-runnable).
 
     A copy of `repro.launch.train.reduce_config`, kept here so that serving
-    pulls in no training module; `repro_torch.launch.train` imports it.
+    does not import the training launcher; `repro_torch.launch.train`
+    imports it.
     """
     if factor <= 1:
         return cfg
@@ -118,15 +121,37 @@ def serve_batch(
 
     With ``comm`` (a rank of a mesh, the reference's ``mesh``), the rank
     serves its rows of ``prompts`` (split over the batch axes, as
-    ``batch_spec_tree`` shards them; all rows where they do not divide)
-    and the outputs are all-gathered in request order.
+    ``batch_spec_tree`` shards them) through `build_prefill_step` and
+    `build_decode_step`, as the reference's ``serve_batch`` does, and the
+    outputs are all-gathered in request order. Where the rows do not
+    divide, the reference's batch spec falls back to replication: every
+    rank serves every request on its own, and nothing is gathered.
     """
+    prompts = np.asarray(prompts)
+    s_max = prompts.shape[1] + gen_tokens
+    kw = dict(temperature=temperature, seed=seed, timings=timings, return_logits=return_logits)
     if comm is not None:
-        return _serve_sharded(lm, params, prompts, gen_tokens, comm, temperature=temperature,
-                              seed=seed, timings=timings, return_logits=return_logits)
+        prefill, info = train_steps.build_prefill_step(lm, comm, s_max=s_max,
+                                                       batch_size=prompts.shape[0])
+        decode, _ = train_steps.build_decode_step(lm, comm, info["rules"])
+        baxes = sharding.batch_axes(comm.mesh, info["rules"])
+        if prompts.shape[0] % comm.axis_size(baxes) == 0:
+            rows = dist_comm.rank_rows(prompts.shape[0], comm, baxes)
+            out = _generate(prefill, decode, params, prompts[rows], gen_tokens, **kw)
+            outs = out if return_logits else (out,)
+            gathered = tuple(
+                comm.all_gather(torch.from_numpy(np.ascontiguousarray(o)), baxes).numpy()
+                for o in outs)
+            return gathered if return_logits else gathered[0]
+    return _generate(lambda p, b: lm.prefill(p, b, s_max=s_max), lm.decode_step, params,
+                     prompts, gen_tokens, **kw)
+
+
+def _generate(prefill, decode, params, prompts, gen_tokens, *, temperature, seed, timings,
+              return_logits):
+    """`serve_batch`'s loop: ``prefill(params, batch)`` and ``decode(params,
+    batch, cache, lengths)``, each returning (logits, cache, lengths)."""
     device = params["embed"].device
-    B, P = prompts.shape
-    s_max = P + gen_tokens
     generator = None
     if temperature > 0.0:
         generator = torch.Generator(device=device).manual_seed(seed)
@@ -136,17 +161,15 @@ def serve_batch(
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=device)
-    logits, cache, lengths = lm.prefill(params, {"tokens": tokens}, s_max=s_max)
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device=device)
+    logits, cache, lengths = prefill(params, {"tokens": tokens})
     tok = sample(logits, generator, temperature)
     out = [tok]
     seen = [logits] if return_logits else []
     sync()
     t1 = time.perf_counter()
     for _ in range(gen_tokens - 1):
-        logits, cache, lengths = lm.decode_step(
-            params, {"tokens": tok[:, None].long()}, cache, lengths
-        )
+        logits, cache, lengths = decode(params, {"tokens": tok[:, None].long()}, cache, lengths)
         tok = sample(logits, generator, temperature)
         out.append(tok)
         if return_logits:
@@ -161,26 +184,6 @@ def serve_batch(
     return tokens_out
 
 
-def _serve_sharded(lm, params, prompts, gen_tokens, comm, *, temperature, seed, timings,
-                   return_logits):
-    rules = sharding.serve_rules("pod" in comm.mesh.shape)
-    baxes = sharding.batch_axes(comm.mesh, rules)
-    prompts = np.asarray(prompts)
-    if prompts.shape[0] % comm.axis_size(baxes):
-        # The reference's batch spec falls back to replication: every rank
-        # serves every request, and nothing is gathered.
-        return serve_batch(lm, params, prompts, gen_tokens, temperature=temperature, seed=seed,
-                           timings=timings, return_logits=return_logits)
-    rows = dist_comm.rank_rows(prompts.shape[0], comm, baxes)
-    with sharding.activation_ctx(comm, rules):
-        out = serve_batch(lm, params, prompts[rows], gen_tokens, temperature=temperature,
-                          seed=seed, timings=timings, return_logits=return_logits)
-    outs = out if return_logits else (out,)
-    gathered = tuple(comm.all_gather(torch.from_numpy(np.ascontiguousarray(o)), baxes).numpy()
-                     for o in outs)
-    return gathered if return_logits else gathered[0]
-
-
 def _serve_rank(comm, args, record: bool):
     """One rank of ``main``'s ``--mesh`` run: the weights from seed 0 drawn
     on the CPU (every rank the same), its rows served on its device."""
@@ -191,23 +194,26 @@ def _serve_rank(comm, args, record: bool):
                       lm.init(torch.Generator().manual_seed(0), dtype=torch.float32))
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 size=(args.requests, args.prompt_len))
-    timings = {}
+    timings, logits = {}, None
     if record:
         # Timed runs start warm (libraries, allocator): a short serve first,
         # its kernel launches not counted.
         serve_batch(lm, params, prompts[:, :min(64, args.prompt_len)], 4, comm=comm)
         kernels.reset_launch_counts()
     t0 = time.time()
-    tokens = serve_batch(lm, params, prompts, args.gen, temperature=args.temperature,
-                         timings=timings if record else None, comm=comm)
+    out = serve_batch(lm, params, prompts, args.gen, temperature=args.temperature,
+                      timings=timings if record else None, return_logits=record, comm=comm)
     dt = time.time() - t0
+    tokens, logits = out if record else (out, None)
     if comm.rank == 0:
         total = args.requests * args.gen
         print(f"[serve] arch={cfg.name} mesh={comm.mesh.shape} device={comm.device} generated "
               f"{total} tokens in {dt:.2f}s ({total/dt:.1f} tok/s)", flush=True)
         for r in range(min(2, args.requests)):
             print(f"[serve] req{r}: {tokens[r].tolist()}", flush=True)
-    return {"tokens": tokens, "timings": timings, "s": dt}
+    # Every rank holds the gathered logits; rank 0's are returned.
+    return {"tokens": tokens, "timings": timings, "s": dt,
+            "logits": logits if comm.rank == 0 else None}
 
 
 def main(argv=None, *, record: Optional[dict] = None):
@@ -216,7 +222,9 @@ def main(argv=None, *, record: Optional[dict] = None):
     a short warm-up, and ``record["ranks"]`` receives each rank's timings
     (prefill and decode seconds, device synchronised), seconds, kernel
     launches (the timed serve's), peak memory and bytes moved, and
-    ``record["transport"]`` the transport."""
+    ``record["transport"]`` the transport. On any mesh, a ``record`` dict
+    also receives ``record["logits"]``: the (requests, gen, V) float32
+    logits the tokens were drawn from."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduce", type=int, default=8)
@@ -244,6 +252,7 @@ def main(argv=None, *, record: Optional[dict] = None):
             record["ranks"] = [{"timings": r["result"]["timings"], "s": r["result"]["s"],
                                 **{k: r[k] for k in ("launches", "max_memory_allocated",
                                                      "comm_bytes")}} for r in recs]
+            record["logits"] = recs[0]["result"]["logits"]
         return recs[0]["result"]["tokens"]
 
     device = resolve_device(args.device)
@@ -257,8 +266,11 @@ def main(argv=None, *, record: Optional[dict] = None):
     prompts = rng.integers(0, cfg.vocab_size, size=(args.requests, args.prompt_len))
 
     t0 = time.time()
-    tokens = serve_batch(lm, params, prompts, args.gen, temperature=args.temperature)
+    tokens = serve_batch(lm, params, prompts, args.gen, temperature=args.temperature,
+                         return_logits=record is not None)
     dt = time.time() - t0
+    if record is not None:
+        tokens, record["logits"] = tokens
     total = args.requests * args.gen
     print(f"[serve] arch={cfg.name} device={device} generated {total} tokens in "
           f"{dt:.2f}s ({total/dt:.1f} tok/s)")

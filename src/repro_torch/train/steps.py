@@ -31,7 +31,8 @@ slices this rank's rows (for ``grad_accum``: of each microbatch).
 
 `build_decode_step` / `build_prefill_step` run `LM.decode_step` /
 `LM.prefill` on this rank's rows under `serve_rules` (params replicated
-with ``model == 1``).
+with ``model == 1``); `repro_torch.launch.serve.serve_batch` serves a
+mesh rank through them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -161,9 +162,11 @@ def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: 
 
 def gather_state(state: TrainState, state_shardings: TrainState, comm, device="cpu") -> TrainState:
     """The whole state from the ranks' shards, leaf by leaf onto ``device``
-    (every rank takes part; a checkpoint's writer is rank 0)."""
+    (every rank takes part; a checkpoint's writer is rank 0). Each shard
+    moves to ``device`` before the gather, so a host-staged gather onto the
+    host does not take the whole leaf through the card."""
     def whole(tree, specs):
-        return tree_map(lambda t, spec: shd.gather_leaf(t, spec, comm).to(device), tree, specs)
+        return tree_map(lambda t, spec: shd.gather_leaf(t.to(device), spec, comm), tree, specs)
 
     return TrainState(whole(state.params, state_shardings.params),
                       whole(state.mu, state_shardings.mu), whole(state.nu, state_shardings.nu),

@@ -134,7 +134,8 @@ def data_runs():
                               es=[e[0] for e in ep], axes=("pod", "data"), **pod)))
     with ThreadPoolExecutor(max_workers=2) as pool:
         runs = {n: pool.submit(run_ranks, progs.run_jobs, make_mesh((n, 1), ("data", "model")),
-                               jobs, timeout_s=TIMEOUT_S) for n, jobs in ((2, two), (4, four))}
+                               jobs, backend="gloo", device="cpu", timeout_s=TIMEOUT_S)
+                for n, jobs in ((2, two), (4, four))}
         ref = {"two": _ref_psum(g2, e2, {"data": 2}, "data"),
                "four": _ref_psum(g4, e4, {"data": 4}, "data"),
                "sync": _ref_psum([[g[0]] for g in gp], [[e[0]] for e in ep],

@@ -12,8 +12,9 @@ no jax).
   stored shards have the shapes the reference's ``spec_for`` gives.
 - The 2-stage GPipe loss (``tests/test_pipeline.py``'s config) within 1e-5
   relative of the reference's serial ``lm.loss``, and its gradients (the
-  replicated leaves summed over the stages) against the port's serial
-  autograd within 1e-5 of each leaf's largest magnitude.
+  replicated leaves summed over the stages) against ``jax.grad`` of that
+  loss and against the port's serial autograd, within 1e-5 of each leaf's
+  largest magnitude.
 - ``--mesh 2x1`` serving (`serve_batch` with a ``comm``): greedy tokens
   equal to the reference's `serve_batch` for qwen3-0.6b and dbrx-132b at
   ``reduce_config(…, 8)``, at 4 x 16 prompts (64 MoE groups: each rank
@@ -133,7 +134,7 @@ def runs():
     # The ranks run while this process computes the reference's results.
     with ThreadPoolExecutor(max_workers=1) as pool:
         ranks = pool.submit(run_ranks, progs.run_jobs, make_mesh((2, 1), ("data", "model")),
-                            jobs, timeout_s=TIMEOUT_S)
+                            jobs, backend="gloo", device="cpu", timeout_s=TIMEOUT_S)
         out["ref"] = _reference(out)
         out["ranks"] = [r["result"] for r in ranks.result()]
     return out
@@ -147,8 +148,10 @@ def _reference(runs):
         batches = runs[key][:1] if accum > 1 else runs[key]
         ref[job] = _ref_train(kw, runs["moe" if kw is TINY_MOE else "tiny"], batches, accum)
     rlm = _ref_lm(PP)
-    ref["pp_loss"] = float(jax.jit(rlm.loss)(jax.tree_util.tree_map(jnp.asarray, runs["pp"]),
-                                             {"tokens": jnp.asarray(runs["pp_tokens"])}))
+    loss, grads = jax.jit(jax.value_and_grad(rlm.loss))(
+        jax.tree_util.tree_map(jnp.asarray, runs["pp"]), {"tokens": jnp.asarray(runs["pp_tokens"])})
+    ref["pp_loss"] = float(loss)
+    ref["pp_grads"] = jax.tree_util.tree_map(np.asarray, grads)
     for arch in SERVE_ARCHS:
         rlm = RefLM(ref_reduce_config(ref_configs.get_config(arch), 8))
         lm = progs.lm_of(arch=arch, reduce=8)
@@ -250,6 +253,23 @@ def test_pp_grads_match_serial_autograd(runs):
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-9
 
 
+def test_pp_grads_match_reference_grad(runs):
+    """Each stage's block slice, and the replicated leaves summed over the
+    stages (``ring_permute``'s backward), against ``jax.grad`` of the
+    reference's serial ``lm.loss`` on the same parameters and tokens."""
+    want_all = runs["ref"]["pp_grads"]
+    half = progs.lm_of(**PP).cfg.n_superblocks // 2
+    for r in runs["ranks"]:
+        s = r["pp"]["stage"]
+        want = {**want_all, "blocks": jax.tree_util.tree_map(
+            lambda a: a[s * half:(s + 1) * half], want_all["blocks"])}
+        got = list(leaves(r["pp"]["grads"]))
+        assert len(got) == len(jax.tree_util.tree_leaves(want))
+        for a, b in zip(got, jax.tree_util.tree_leaves(want)):
+            assert a.shape == b.shape
+            assert float(np.abs(a.numpy() - b).max()) <= 1e-5 * float(np.abs(b).max()) + 1e-9
+
+
 @pytest.mark.parametrize("shape_i", range(len(SERVE_PROMPTS)))
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_mesh_serve_tokens_equal_reference(runs, arch, shape_i):
@@ -301,6 +321,23 @@ def test_transport_is_named_never_chosen(monkeypatch):
     assert dist_comm.transport_name("gloo", "cuda", 2) == "gloo, host-staged, 2 ranks on cuda:0"
 
 
+def test_ranks_name_their_transport_and_default_to_the_card(monkeypatch):
+    """``run_ranks`` and ``Comm`` take no default transport, and compute on
+    the card unless asked for the CPU: without a card they raise."""
+    from repro_torch.distributed.comm import Comm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = make_mesh((2, 1), ("data", "model"))
+    with pytest.raises(TypeError, match="backend"):
+        run_ranks(progs.run_jobs, mesh, [])
+    with pytest.raises(TypeError, match="backend"):
+        Comm(make_mesh((1, 1), ("data", "model")), 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_ranks(progs.run_jobs, mesh, [], backend="gloo")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Comm(make_mesh((1, 1), ("data", "model")), 0, backend="gloo")
+
+
 def test_launchers_refuse_the_model_axis():
     for main in (train.main, serve.main):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -317,7 +354,7 @@ def test_serve_steps_on_a_one_rank_mesh_equal_the_model():
 
     lm = progs.lm_of(**TINY_MOE)
     params = progs.tensors(_draw(lm, 5), "cpu")
-    comm = Comm(make_mesh((1, 1), ("data", "model")), 0)
+    comm = Comm(make_mesh((1, 1), ("data", "model")), 0, backend="gloo", device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(5).integers(0, 512, (2, 12)))
     prefill, pinfo = build_prefill_step(lm, comm, s_max=16, batch_size=2)
     decode, dinfo = build_decode_step(lm, comm)

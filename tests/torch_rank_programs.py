@@ -46,7 +46,8 @@ def run_jobs(comm, jobs):
         kw = dict(kw)
         spec = kw.pop("mesh", None)
         if spec not in comms:
-            comms[spec] = Comm(make_mesh(*spec), comm.rank, comm.backend, comm.device)
+            comms[spec] = Comm(make_mesh(*spec), comm.rank, backend=comm.backend,
+                                 device=comm.device)
         out[name] = PROGRAMS[kw.pop("program", name)](comms[spec], **kw)
     return out
 
