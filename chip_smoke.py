@@ -153,6 +153,14 @@ exits non-zero; nothing is caught):
               the L2 flushed before each call (a 128 MB buffer zeroed and
               read back inside the timed call; neither is counted), as a
               decode step finds the cache after the other layers' weights.
+              Then decode's log-sum-exp output (``return_lse``, the
+              statistic that merges a sequence-sharded cache across model
+              ranks) at qwen3-0.6b's and recurrentgemma-2b's serving
+              shapes cut into two position shards (some rows' second shard
+              empty: zero output, -inf): output and log-sum-exp against
+              the plain version's within 2e-5, the two shards merged
+              against the plain version over the whole cache; call and
+              device ms with it, call ms without, bound, plain ms.
 8. serve    - qwen3-0.6b at full width (28 layers, reduce 1), seeded
               float32 parameters and a bf16 cache: 8 requests of 1,024
               prompt tokens, 64 generated (s_max 1,088), through
@@ -255,8 +263,8 @@ exits non-zero; nothing is caught):
               ``reduce_config``): qwen3-0.6b, all 28 layers, 8 x 1,024;
               recurrentgemma-2b, one (rec, rec, local_attn) superblock and
               its (rec, rec) remainder, 4 x 2,048; rwkv6-7b, 2 layers, 8 x
-              1,024. 4 steps with a checkpoint at step 2, then a run
-              resumed from that checkpoint alone to step 4: resumed losses
+              1,024. 3 steps with a checkpoint at step 2, then a run
+              resumed from that checkpoint alone to step 3: resumed losses
               within rtol 1e-5 of the first run's, the restored state
               byte-equal to the saved files, exact launches per step (2 for
               each superblock layer that uses a kernel: forward and remat's
@@ -274,46 +282,70 @@ exits non-zero; nothing is caught):
               sign(g), which turns rounding differences on near-zero
               gradients into full steps).
 
-17. dist_parity - ranks (`repro_torch.distributed.comm.run_ranks`): two
-              ranks sharing the card through host-staged gloo (NCCL refuses
-              two ranks on one card), against the same two ranks on the CPU
-              (run meanwhile), qwen3-0.6b and dbrx-132b at reduce 8: 3
-              FSDP-sharded steps and 3 compressed-DP steps (losses within
-              rtol 1e-4, every parameter leaf within 1e-3 * max|leaf| +
-              1e-6; AdamW as TRAIN_PARITY_ADAMW), the 2-stage GPipe loss
-              and gradients on a pod mesh of the same ranks, and the --mesh
-              2x1 serve at 4 x 16 and 2 x 45 prompts (45 MoE groups
-              straddle the ranks): tokens equal, logits within 2e-3. With
-              two cards the same over NCCL; with one, "not run: 1 card".
-18. train_fsdp - ``launch.train --mesh 2x1 --dist-backend gloo``, qwen3-0.6b
-              full width, the train phase's 8 x 1,024 batches: 2 steps, a
-              checkpoint at 2, a run resumed from it for step 2 (steps cut
-              from 4: each moves 4.8 GB through host-staged gloo), whose
-              final checkpoint (step 3) is restored on one rank
-              (`elastic_mesh(1, 1)`) for the fourth step; the four losses
-              against the train phase's (step 1 rtol 1e-5, later 1e-3);
-              step ms, bytes gathered and reduce-scattered a step, each
-              rank's peak memory, launches summed over the ranks.
-19. train_compressed - the compressed-DP step on two ranks, the same model
-              and batches, 2 steps: step ms, the int32 payload's bytes
-              against the float32 gradients', losses beside FSDP's; step
-              1's loss within rtol 1e-5 of the train phase's, and the norm
-              of the synchronised step-1 gradient within the error
+17. dist_parity, tp_parity - ranks (`repro_torch.distributed.comm.run_ranks`;
+              `phase_rank_parity`): card ranks sharing the card through
+              host-staged gloo (NCCL refuses two ranks on one card), against
+              the same ranks on the CPU, all at reduce 8; nothing here is
+              timed, so the six spawns run at once. dist_parity: qwen3-0.6b
+              and dbrx-132b on 2x1, 3 FSDP-sharded steps and 3
+              compressed-DP steps (losses within rtol 1e-4, every parameter
+              leaf within 1e-3 * max|leaf| + 1e-6; AdamW as
+              TRAIN_PARITY_ADAMW), the 2-stage GPipe loss and gradients on a
+              pod mesh of the same ranks (qwen3-0.6b only), and the 2x1
+              serve at 4 x 16 and 2 x 45 prompts (45 MoE groups straddle
+              the ranks): tokens equal, logits within 2e-3. tp_parity (the
+              ``model`` axis, tensor parallelism): ``--mesh 1x2`` greedy
+              serving of six configs (4 x 16 prompts, 16 tokens, float32
+              caches; tokens equal, logits within 2e-3), granite-20b's and
+              recurrentgemma-2b's caches sequence-sharded and merged by the
+              decode kernel's log-sum-exp; ``--mesh 2x2`` 3 FSDP x TP steps
+              of qwen3-0.6b and dbrx-132b (the same rules). With enough
+              cards the same over NCCL; else "not run: 1 card".
+18. train_fsdp - ``launch.train``, qwen3-0.6b full width with its depth cut
+              to 8 layers, the train phase's 8 x 1,024 batches: 3 steps on
+              one device (the baseline of 18-20), then ``--mesh 2x1
+              --dist-backend gloo``: 1 step, a checkpoint at 1 (its shards
+              gathered to rank 0 alone), a run resumed from it for step 1,
+              whose final checkpoint (step 2) is restored on one rank
+              (`elastic_mesh(1, 1)`) for the third step; the three losses
+              against the baseline's (step 1 rtol 1e-5, later 1e-3); step
+              ms, bytes gathered and reduce-scattered a step, each rank's
+              peak memory, launches summed over the ranks.
+19. train_tp - ``launch.train --mesh 1x2 --dist-backend gloo``, the same
+              model and batches: 2 FSDP x TP steps, a checkpoint gathered
+              to rank 0, and ``--resume`` from it on one device for a
+              third; the losses against the baseline's (step 1 rtol 1e-5,
+              later 1e-3); step ms, bytes per collective kind, peak memory,
+              exact launches.
+20. train_pp, train_compressed - one spawn of two ranks, the weights
+              drawn once. GPipe: the same model as 2 stages of 4 layers
+              over ``pod``, 4 microbatches of 2 x 1,024: the loss within
+              rtol 1e-5 of the serial loss on the card, every gradient leaf
+              within 1e-4 of its largest magnitude; 16 flash launches a
+              rank. Then the compressed-DP step on the same two ranks, the
+              same model and batches, 2 steps: step ms, the int32 payload's
+              bytes against the float32 gradients', losses beside FSDP's;
+              step 1's loss within rtol 1e-5 of the baseline's, and the
+              norm of the synchronised step-1 gradient within the error
               feedback's bound (the ranks' mean residual norm) of the
-              train phase's exact gradient norm.
-20. train_pp - qwen3-0.6b full width as 2 GPipe stages of 14 layers over
-              ``pod``, 4 microbatches of 2 x 1,024: the loss within rtol
-              1e-5 of the serial loss on the card, every gradient leaf
-              within 1e-4 of its largest magnitude; 56 flash launches a
-              rank.
+              baseline's exact gradient norm.
 21. serve_dp - ``launch.serve --mesh 2x1 --dist-backend gloo``, qwen3-0.6b
               full width, 8 requests of 1,024 + 64: prefill s, decode ms a
               step and tokens/s beside the serve phase's; exact launches;
               tokens and logits held to ``launch.serve --mesh 1x1`` of the
               same weights (logits within 2e-3 up to where the greedy runs
               first part, if they do).
+22. serve_tp - ``serve_batch`` on ``--mesh 1x2`` (tensor parallelism) at
+              full width, alone on the host: qwen3-0.6b (28 layers) and
+              recurrentgemma-2b (5 layers, its ring sequence-sharded), 8
+              requests of 1,024 / 2,048 + 16 (cut from 64 for the time
+              limit), against a one-card serve of the same weights; prefill
+              s, decode ms, tokens/s, bytes per collective kind, peak
+              memory, exact launches and log-sum-exp launches a rank.
 
-Then a ``{"kernels": [...]}`` line (one entry per kernel: route, source,
+A ``dist_budget`` line gives the phases across ranks' seconds against
+their 330 s budget. Then a ``{"kernels": [...]}`` line (one entry per
+kernel: route, source,
 the TPU kernel it replaces, launches in the run of its main path - the
 full-width replay for the scheduler's kernels (with the dynamic ON and OFF
 replays' and phases 6d-6h's and 13d's beside them), the qwen3-0.6b serve for
@@ -331,6 +363,7 @@ no network, and exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -346,6 +379,7 @@ from typing import Optional
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 if str(ROOT / "src") not in sys.path:
     sys.path.insert(0, str(ROOT / "src"))
 
@@ -483,7 +517,7 @@ TRAIN_RUNS = {
     "train_recurrentgemma": ("recurrentgemma-2b", 5, 4, 2048),  # (rec, rec, local_attn) + (rec, rec)
     "train_rwkv": ("rwkv6-7b", 2, 8, 1024),
 }
-TRAIN_STEPS, TRAIN_CKPT_AT = 4, 2
+TRAIN_STEPS, TRAIN_CKPT_AT = 3, 2  # cut from 4 for the time limit
 TRAIN_RESUME_RTOL = 1e-5
 TRAIN_PARITY_SEQ = {"qwen3-0.6b": 128, "recurrentgemma-2b": 128, "rwkv6-7b": 512}
 TRAIN_PARITY_STEPS = 3
@@ -1916,9 +1950,115 @@ def check_decode(q, k_cache, v_cache, lengths, q_dt: str, c_dt: str) -> dict:
                   ref.decode_attention_ref(q, k_cache, v_cache, lengths), ATT_TOL[q_dt])
 
 
+def check_decode_lse(q, kc, vc, valid, shards: int, c_dt: str) -> dict:
+    """The decode kernel with ``return_lse`` on each of ``shards`` position
+    shards of a cache (as the ``model`` ranks hold a sequence-split one;
+    the valid count of shard r is clamp(valid - r * S / shards, 0, S /
+    shards)): output and log-sum-exp against the plain version's (-inf and
+    a zero output where a shard holds nothing), and the shards merged by
+    `merge_partials` against the plain version over the whole cache. Times
+    shard 0's call with the log-sum-exp beside the same call without."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel_cuda as dec_k
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.models.attention import merge_partials
+
+    B, H, D = q.shape
+    KVH, S = kc.shape[1], kc.shape[2]
+    size = S // shards
+    parts, errs, empty = [], {"out": 0.0, "lse": 0.0}, 0
+    for r in range(shards):
+        n_np = np.clip(valid - r * size, 0, size).astype(np.int32)
+        n = torch.from_numpy(n_np).to("cuda")
+        ks = kc[:, :, r * size:(r + 1) * size].contiguous()
+        vs = vc[:, :, r * size:(r + 1) * size].contiguous()
+        o, lse = dec_k.decode_attention_cuda(q, ks, vs, n, return_lse=True)
+        po, plse = dec_ref.decode_attention_ref(q, ks, vs, n, return_lse=True)
+        none = torch.from_numpy(n_np == 0).to("cuda")
+        empty += int(none.sum())
+        if not (torch.isneginf(lse[none]).all() and not o[none].any()):
+            raise AssertionError("decode_attention lse: an empty shard's row is not (0, -inf)")
+        errs["out"] = max(errs["out"], _agree("decode_attention lse output", o, po,
+                                              ATT_TOL["f32"])["max_abs_err"])
+        errs["lse"] = max(errs["lse"], _agree("decode_attention lse", lse[~none], plse[~none],
+                                              ATT_TOL["f32"])["max_abs_err"])
+        parts.append((o, lse, ks, vs, n, n_np))
+    merged = merge_partials(torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]),
+                            lambda t: t.amax(0, keepdim=True),
+                            lambda t: t.sum(0, keepdim=True))[0]
+    whole = dec_ref.decode_attention_ref(q, kc, vc, torch.from_numpy(valid).to("cuda"))
+    merge_err = _agree("decode_attention merged shards", merged, whole,
+                       ATT_TOL["f32"])["max_abs_err"]
+    _, _, ks, vs, n, n_np = parts[0]
+    total = int(n_np.sum())  # shard 0's valid positions; the lse is (B, H) float32 more
+    n_bytes = 2 * total * KVH * D * (4 if c_dt == "f32" else 2) + 2 * B * H * D * 4 + B * H * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * total * H * D, _att_peak("f32", c_dt))
+    return {"shape": [B, H, KVH, S, D], "shards": shards, "cache_dtype": c_dt,
+            "valid": valid.tolist(), "empty_shard_rows": empty,
+            "max_abs_err": max(errs.values()), "out_max_abs_err": errs["out"],
+            "lse_max_abs_err": errs["lse"], "merged_max_abs_err": merge_err,
+            "tolerance": ATT_TOL["f32"],
+            "kernel_ms": time_ms(lambda: dec_k.decode_attention_cuda(q, ks, vs, n,
+                                                                     return_lse=True)),
+            "device_ms": device_ms(lambda: dec_k.decode_attention_cuda(q, ks, vs, n,
+                                                                       return_lse=True),
+                                   DECODE_KERNEL),
+            "kernel_ms_without_lse": time_ms(lambda: dec_k.decode_attention_cuda(q, ks, vs, n)),
+            "plain_ms": time_ms(lambda: dec_ref.decode_attention_ref(q, ks, vs, n,
+                                                                     return_lse=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            **_flex_decode_lse(q, ks, vs, n, o=parts[0][0], lse=parts[0][1])}
+
+
+def _flex_decode_lse(q, ks, vs, n, o, lse) -> dict:
+    """The yardstick of the log-sum-exp row: torch's ``flex_attention``
+    (compiled), one call that returns the output and the log-sum-exp of
+    one-token attention over a cache shard, positions at or past ``n[b]``
+    masked by a block mask (made outside the timed window, so that empty
+    blocks are skipped), GQA by ``enable_gqa``, the cache cast to q's
+    dtype as the sdpa rows cast it. Its time, compile seconds, and its
+    distance from the kernel's ``o`` and ``lse`` (rows with a valid
+    position), which nothing gates: the port never calls it."""
+    import torch
+
+    # Inductor's and Triton's caches inside the checkout's ignored build/.
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    from torch.nn.attention import flex_attention as fa
+
+    B, S = ks.shape[0], ks.shape[2]
+    block_mask = fa.create_block_mask(lambda b, h, q_idx, kv_idx: kv_idx < n[b], B, None, 1, S,
+                                      device=q.device)
+    qf, kf, vf = q[:, :, None], ks.to(q.dtype), vs.to(q.dtype)
+    flex = torch.compile(fa.flex_attention, dynamic=False)
+    if hasattr(fa, "AuxRequest"):
+        def call():
+            out, aux = flex(qf, kf, vf, block_mask=block_mask, enable_gqa=True,
+                            return_aux=fa.AuxRequest(lse=True))
+            return out, aux.lse
+    else:
+        def call():
+            return flex(qf, kf, vf, block_mask=block_mask, enable_gqa=True, return_lse=True)
+    t0 = time.perf_counter()
+    lo, llse = call()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    some = (n > 0)
+    return {"library_ms": time_ms(call), "library": "torch.nn.attention.flex_attention "
+                                                    "(torch.compile, block mask, enable_gqa, "
+                                                    "log-sum-exp returned; yardstick only)",
+            "library_compile_s": compile_s,
+            "library_out_max_abs_diff": float((lo[:, :, 0].float() - o.float()).abs().max()),
+            "library_lse_max_abs_diff": float((llse[some][..., 0].float()
+                                               - lse[some].float()).abs().max())}
+
+
 def phase_attention_kernels() -> dict:
     """Both attention kernels against their plain versions at the serving
-    shapes; the first row of each is the dtype combination serving uses."""
+    shapes; the first row of each is the dtype combination serving uses.
+    Then the decode kernel's log-sum-exp and the merge of two position
+    shards at qwen3-0.6b's and recurrentgemma-2b's serving shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -2005,6 +2145,22 @@ def phase_attention_kernels() -> dict:
             *lib_args[:3], attn_mask=lib_args[3], enable_gqa=True)),
     })
     del q, k, v, kc, vc, lib_args
+
+    # Two position shards of qwen3-0.6b's cache (every query head over
+    # each) and of recurrentgemma-2b's ring: rows whose valid count stops in
+    # shard 0 leave shard 1 empty.
+    out["decode_attention_lse"] = []
+    for arch, S in ((SERVE_ARCH, SERVE_PROMPT + SERVE_GEN), ("recurrentgemma-2b", 2048)):
+        c = configs.get_config(arch)
+        q = randn((SERVE_REQUESTS, c.n_heads, c.head_dim), "f32")
+        kc, vc = (randn((SERVE_REQUESTS, c.n_kv_heads, S, c.head_dim), "bf16")
+                  for _ in range(2))
+        valid = rng.integers(1, S + 1, size=SERVE_REQUESTS).astype(np.int32)
+        valid[:3] = (1, S // 2 - 5, S // 2)
+        valid[-1] = S
+        out["decode_attention_lse"].append({"arch": arch, **check_decode_lse(
+            q, kc, vc, valid, TP_SIZE, "bf16")})
+        del q, kc, vc
 
     emit({"phase": "attention_kernels", "tolerance": ATT_TOL,
           "library": "torch.nn.functional.scaled_dot_product_attention (yardstick only)",
@@ -3055,8 +3211,8 @@ def phase_train(phase: str, arch: str, n_layers: int, batch: int, seq: int,
                 device="cuda") -> dict:
     """``launch.train.main`` at ``arch``'s full width with its depth cut to
     ``n_layers`` (a ``dataclasses.replace`` in place of ``reduce_config``):
-    4 steps with a checkpoint at 2, then from that checkpoint alone steps 2
-    and 3 again. Asserts the kernels' launches per step, the resumed losses
+    3 steps with a checkpoint at 2, then from that checkpoint alone step 2
+    again. Asserts the kernels' launches per step, the resumed losses
     against the first run's (rtol 1e-5: the embedding's gradient is an
     atomic scatter on the card) and the state the resumed run restored
     byte-equal to the files saved (their crc32 also checked against the
@@ -3231,22 +3387,46 @@ DIST_BACKEND = "gloo"  # one card: NCCL refuses two ranks on it
 DIST_MESH = ((2, 1), ("data", "model"))
 PP_MESH = ((2,), ("pod",))
 DIST_PARITY_ARCHS = ("qwen3-0.6b", "dbrx-132b")  # each at reduce_config(cfg, 8)
+DIST_PARITY_PP_ARCHS = ("qwen3-0.6b",)  # the GPipe sub-run (dbrx left out for time)
 DIST_PARITY_BATCH = (4, 64)  # global rows x seq of the train steps
 DIST_PARITY_STEPS = 3
 DIST_PARITY_PP_LAYERS = 4  # 2 stages of 2 (reduce 8 leaves 3 and 5 layers)
 DIST_PARITY_PROMPTS = ((4, 16), (2, 45))  # 64 MoE groups (each rank its own); 45 (straddling)
 DIST_PARITY_GEN = 8
 DIST_TRAIN = ("qwen3-0.6b", 8, 1024)  # arch, global batch, seq: the train phase's
-# Steps cut from the train phase's 4 to fit the script's time limit: at
-# full width a step moves 4.8 GB and a checkpoint 7.2 GB through
-# host-staged gloo (~0.5 GB/s on an H100 host: 8-13 s a step, PERF.md).
-FSDP_STEPS, FSDP_CKPT_AT = 2, 2  # then the resumed run takes step 2
+# The training across ranks (train_fsdp, train_tp, train_compressed,
+# train_pp) at full width with the depth cut from 28 layers to 8, and
+# steps cut from the train phase's 4, for the script's time limit: at 28
+# layers an FSDP step moved 4.8 GB and a checkpoint 7.2 GB through
+# host-staged gloo (~0.5 GB/s on an H100 host: 20 s a step, PERF.md); the
+# checkpoint's shards go to rank 0 alone (a gather). One one-card run of
+# the same 8 layers (train_fsdp's) is the baseline of all four.
+DIST_TRAIN_LAYERS = 8
+FSDP_STEPS, FSDP_CKPT_AT = 1, 1  # then the resumed run takes step 1
 COMPRESSED_STEPS = 2
 DIST_FIRST_RTOL, DIST_LATER_RTOL = 1e-5, 1e-3  # step 1; later steps (AdamW eps 1e-8)
 PP_MICROBATCHES = 4  # of 2 x 1,024
 PP_LOSS_RTOL = 1e-5  # tests/test_pipeline.py's bound
 PP_GRAD_TOL = 1e-4  # of each leaf's largest magnitude
 DIST_TIMEOUT_S = 600
+DIST_BUDGET_S = 330  # all phases across ranks together (reported, not enforced)
+# The model axis (tensor parallelism). tp_parity: card ranks against CPU
+# ranks at reduce 8; serve_tp and train_tp at full width.
+TP_SIZE = 2
+TP_MESH = ((1, TP_SIZE), ("data", "model"))
+TP_TRAIN_MESH = ((2, TP_SIZE), ("data", "model"))
+TP_PARITY_SERVE_ARCHS = ("qwen3-0.6b", "dbrx-132b", "recurrentgemma-2b", "granite-20b",
+                         "rwkv6-7b", "llama-3.2-vision-11b")
+TP_PARITY_PROMPTS, TP_PARITY_GEN = (4, 16), 16
+TP_PARITY_TRAIN_ARCHS = ("qwen3-0.6b", "dbrx-132b")
+# (layers or None for all, requests, prompt tokens, generated tokens);
+# recurrentgemma-2b's depth cut as train_recurrentgemma's, its 2,048-slot
+# ring sequence-sharded over the two ranks.
+# 16 generated tokens (cut from the serve phases' 64 for the time limit:
+# host-staged gloo takes ~200 ms a qwen3-0.6b decode step, measured on one
+# H100).
+SERVE_TP_RUNS = {"qwen3-0.6b": (None, 8, 1024, 16), "recurrentgemma-2b": (5, 8, 2048, 16)}
+TRAIN_TP_STEPS = 2  # DIST_TRAIN on --mesh 1x2; then one step more on one rank
 
 
 def _free_card(device) -> None:
@@ -3274,7 +3454,8 @@ def _on(tree, device):
 def _dist_parity_rank(comm, inputs: dict) -> dict:
     """Each arch of ``inputs`` on this rank: 3 FSDP steps, 3 compressed-DP
     steps, the 2-stage pipeline's loss and gradients (on a pod mesh of the
-    same ranks) and ``serve_batch`` over ``data``."""
+    same ranks; DIST_PARITY_PP_ARCHS only) and ``serve_batch`` over
+    ``data``."""
     import torch
 
     from repro_torch import configs
@@ -3319,13 +3500,14 @@ def _dist_parity_rank(comm, inputs: dict) -> dict:
         if comm.rank == 0:
             res["fsdp_params"], res["compressed_params"] = full.params, cstate.inner.params
         del full, cstate
-        plm = LM(dataclasses.replace(cfg, n_layers=DIST_PARITY_PP_LAYERS))
-        pp = pipeline.build_pp_loss(plm, pod, n_microbatches=2)
-        res["pp_loss"], grads = pipeline.pp_value_and_grad(
-            pp, pipeline.stage_params(plm, _on(inp["pp_params"], comm.device), pod),
-            {"tokens": inp["batches"][0]["tokens"]}, pod)
-        res["pp_loss"] = float(res["pp_loss"])
-        res["pp_grads"] = grads
+        if "pp_params" in inp:
+            plm = LM(dataclasses.replace(cfg, n_layers=DIST_PARITY_PP_LAYERS))
+            pp = pipeline.build_pp_loss(plm, pod, n_microbatches=2)
+            res["pp_loss"], grads = pipeline.pp_value_and_grad(
+                pp, pipeline.stage_params(plm, _on(inp["pp_params"], comm.device), pod),
+                {"tokens": inp["batches"][0]["tokens"]}, pod)
+            res["pp_loss"] = float(res["pp_loss"])
+            res["pp_grads"] = grads
         params = _on(inp["params"], comm.device)
         res["serve"] = [serve.serve_batch(lm, params, p, DIST_PARITY_GEN, comm=comm,
                                           return_logits=True) for p in inp["prompts"]]
@@ -3351,11 +3533,12 @@ def _dist_parity_inputs() -> dict:
         rng = np.random.default_rng(SEED)
         inputs[arch] = {
             "params": _np_tree(lm.init(torch.Generator().manual_seed(SEED), torch.float32)),
-            "pp_params": _np_tree(plm.init(torch.Generator().manual_seed(SEED + 1),
-                                           torch.float32)),
             "batches": [data.batch(i) for i in range(DIST_PARITY_STEPS)],
             "prompts": [rng.integers(0, cfg.vocab_size, shape) for shape in DIST_PARITY_PROMPTS],
         }
+        if arch in DIST_PARITY_PP_ARCHS:
+            inputs[arch]["pp_params"] = _np_tree(plm.init(torch.Generator().manual_seed(SEED + 1),
+                                                          torch.float32))
     return inputs
 
 
@@ -3395,12 +3578,14 @@ def _compare_parity(card: list, cpu: list) -> dict:
                                                                       b0[f"{kind}_params"])}
             row[kind]["ok"] = (rel <= TRAIN_PARITY_LOSS_RTOL
                                and row[kind]["max_param_diff_over_tolerance"] <= 1.0)
-        pp_rel = max(abs(r[arch]["pp_loss"] - b0["pp_loss"]) / abs(b0["pp_loss"]) for r in card)
-        pp_worst = max(_leaf_worst(r[arch]["pp_grads"], s[arch]["pp_grads"])
-                       for r, s in zip(card, cpu))
-        row["pp"] = {"loss": a0["pp_loss"], "cpu_loss": b0["pp_loss"], "loss_rel_diff": pp_rel,
-                     "max_grad_diff_over_tolerance": pp_worst,
-                     "ok": pp_rel <= TRAIN_PARITY_LOSS_RTOL and pp_worst <= 1.0}
+        if arch in DIST_PARITY_PP_ARCHS:
+            pp_rel = max(abs(r[arch]["pp_loss"] - b0["pp_loss"]) / abs(b0["pp_loss"])
+                         for r in card)
+            pp_worst = max(_leaf_worst(r[arch]["pp_grads"], s[arch]["pp_grads"])
+                           for r, s in zip(card, cpu))
+            row["pp"] = {"loss": a0["pp_loss"], "cpu_loss": b0["pp_loss"],
+                         "loss_rel_diff": pp_rel, "max_grad_diff_over_tolerance": pp_worst,
+                         "ok": pp_rel <= TRAIN_PARITY_LOSS_RTOL and pp_worst <= 1.0}
         serves = []
         for (tok, logits), (ctok, clogits) in zip(a0["serve"], b0["serve"]):
             diff, ok = _logit_diff(logits, clogits)
@@ -3411,84 +3596,212 @@ def _compare_parity(card: list, cpu: list) -> dict:
     return out
 
 
-def phase_dist_parity(device="cuda") -> dict:
-    """qwen3-0.6b and dbrx-132b at reduce 8 on two ranks sharing the card
-    (host-staged gloo), held against the same ranks on the CPU: 3 FSDP
-    steps and 3 compressed-DP steps (losses within rtol 1e-4, every
-    parameter leaf within 1e-3 * max|leaf| + 1e-6; AdamW as
-    TRAIN_PARITY_ADAMW), the 2-stage GPipe loss (rtol 1e-4) and its
-    gradients (the leaf rule), and the ``--mesh 2x1`` serve at 4 x 16 and
-    2 x 45 prompts (greedy tokens equal, logits within 2e-3 abs + rel).
-    Where two cards exist, the same with NCCL; else nothing is attempted."""
+def _spawn(pool, fn, mesh, *args, **kw):
+    """``run_ranks(fn, mesh, *args, **kw)`` on ``pool``: a future of (the
+    ranks' records, seconds)."""
+    from repro_torch.distributed.comm import run_ranks
+
+    def timed():
+        t0 = time.perf_counter()
+        recs = run_ranks(fn, mesh, *args, timeout_s=DIST_TIMEOUT_S, **kw)
+        return recs, time.perf_counter() - t0
+
+    return pool.submit(timed)
+
+
+def phase_rank_parity(device="cuda") -> tuple:
+    """dist_parity and tp_parity: card ranks (host-staged gloo, sharing the
+    card) held against the same ranks on the CPU, at reduce 8. Nothing in
+    them is timed, so their six spawns run at once; the phases that time
+    something run after, alone. Returns both lines and the seconds of the
+    whole.
+
+    - ``dist_parity``: qwen3-0.6b and dbrx-132b on ``--mesh 2x1``: 3 FSDP
+      steps and 3 compressed-DP steps (losses within rtol 1e-4, every
+      parameter leaf within 1e-3 * max|leaf| + 1e-6; AdamW as
+      TRAIN_PARITY_ADAMW), the 2-stage GPipe loss (rtol 1e-4) and its
+      gradients (the leaf rule; qwen3-0.6b only), and the serve at 4 x 16
+      and 2 x 45 prompts (greedy tokens equal, logits within 2e-3 abs +
+      rel).
+    - ``tp_parity``: on ``--mesh 1x2`` greedy serving of
+      TP_PARITY_SERVE_ARCHS at 4 x 16 prompts and 16 generated tokens with
+      float32 caches (tokens equal, logits within 2e-3 abs + rel; as
+      recurrent_parity, a bf16 cache would hold rwkv6-7b to its drift, not
+      to the port: `PERF.md` §7); granite-20b's and recurrentgemma-2b's
+      caches sequence-sharded and merged by the decode kernel's
+      log-sum-exp; the VLM with images. On ``--mesh 2x2`` 3 FSDP x TP
+      steps of qwen3-0.6b and dbrx-132b (the dist_parity rules).
+
+    Where the card count reaches a mesh's size, the same over NCCL after;
+    else "not run: 1 card"."""
     import torch
 
-    from repro_torch.distributed.comm import run_ranks, transport_name
+    from repro_torch.distributed.comm import run_ranks, summed_launches, transport_name
     from repro_torch.launch.mesh import make_mesh
 
     t_phase = time.perf_counter()
     _free_card(device)
-    inputs = _dist_parity_inputs()
-    mesh = make_mesh(*DIST_MESH)
+    dist_in, tp_in = _dist_parity_inputs(), _tp_parity_inputs()
+    mesh, one_two, two_two = make_mesh(*DIST_MESH), make_mesh(*TP_MESH), make_mesh(*TP_TRAIN_MESH)
+    card, cpu = dict(backend=DIST_BACKEND, device=device), dict(backend="gloo", device="cpu")
+    # The CPU twins of the model axis run one thread a rank: the reduced
+    # models' products gain little from more, and the card's ranks need the
+    # host.
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        runs = {"dist_card": _spawn(pool, _dist_parity_rank, mesh, dist_in, **card),
+                "dist_cpu": _spawn(pool, _dist_parity_rank, mesh, dist_in, **cpu),
+                "tp_serve_card": _spawn(pool, _tp_serve_rank, one_two, tp_in["serve"], **card),
+                "tp_train_card": _spawn(pool, _tp_train_rank, two_two, tp_in["train"], **card),
+                "tp_serve_cpu": _spawn(pool, _tp_serve_rank, one_two, tp_in["serve"], 1, **cpu),
+                "tp_train_cpu": _spawn(pool, _tp_train_rank, two_two, tp_in["train"], 1, **cpu)}
+        got = {k: f.result() for k, f in runs.items()}
+    spawn_s = {k: v[1] for k, v in got.items()}
+    recs = {k: v[0] for k, v in got.items()}
+    block_s = time.perf_counter() - t_phase
+    results = {k: [r["result"] for r in v] for k, v in recs.items()}
+    bad = []
 
-    def timed(**kw):
-        t0 = time.perf_counter()
-        recs = run_ranks(_dist_parity_rank, mesh, inputs, timeout_s=DIST_TIMEOUT_S, **kw)
-        return recs, time.perf_counter() - t0
-
-    # The CPU ranks (two processes of their own, their own store) run
-    # meanwhile: they share nothing with the card's ranks.
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        on_cpu = pool.submit(timed, backend="gloo", device="cpu")
-        card, card_s = timed(backend=DIST_BACKEND, device=device)
-        cpu, cpu_s = on_cpu.result()
-    archs = _compare_parity([r["result"] for r in card], [r["result"] for r in cpu])
+    # --- dist_parity
+    archs = _compare_parity(results["dist_card"], results["dist_cpu"])
     nccl = "not run: 1 card"
     if device == "cuda" and torch.cuda.device_count() >= mesh.size:
-        recs = run_ranks(_dist_parity_rank, mesh, inputs, backend="nccl", device=device,
-                         timeout_s=DIST_TIMEOUT_S)
-        nccl = {"transport": transport_name("nccl", device, mesh.size), **_ranks_info(recs),
-                "archs": _compare_parity([r["result"] for r in recs],
-                                         [r["result"] for r in cpu])}
-    info = {"phase": "dist_parity", "transport": transport_name(DIST_BACKEND, device, mesh.size),
-            "reference_transport": transport_name("gloo", "cpu", mesh.size),
-            "config": {"reduce": 8, "batch": list(DIST_PARITY_BATCH),
-                       "steps": DIST_PARITY_STEPS, "pp_layers": DIST_PARITY_PP_LAYERS,
-                       "prompts": [list(p) for p in DIST_PARITY_PROMPTS],
-                       "gen": DIST_PARITY_GEN, "adamw": TRAIN_PARITY_ADAMW},
-            "archs": archs, **_ranks_info(card), "card_s": card_s, "cpu_s": cpu_s,
-            "nccl": nccl, "phase_s": time.perf_counter() - t_phase}
-    emit(info)
-    bad = [(arch, k) for arch, row in archs.items() for k, v in row.items()
-           if not (all(s["ok"] for s in v) if isinstance(v, list) else v["ok"])]
+        n_recs = run_ranks(_dist_parity_rank, mesh, dist_in, backend="nccl", device=device,
+                           timeout_s=DIST_TIMEOUT_S)
+        nccl = {"transport": transport_name("nccl", device, mesh.size), **_ranks_info(n_recs),
+                "archs": _compare_parity([r["result"] for r in n_recs], results["dist_cpu"])}
+    dist_info = {"phase": "dist_parity",
+                 "transport": transport_name(DIST_BACKEND, device, mesh.size),
+                 "reference_transport": transport_name("gloo", "cpu", mesh.size),
+                 "config": {"reduce": 8, "batch": list(DIST_PARITY_BATCH),
+                            "steps": DIST_PARITY_STEPS, "pp_layers": DIST_PARITY_PP_LAYERS,
+                            "prompts": [list(p) for p in DIST_PARITY_PROMPTS],
+                            "gen": DIST_PARITY_GEN, "adamw": TRAIN_PARITY_ADAMW},
+                 "archs": archs, **_ranks_info(recs["dist_card"]),
+                 "card_s": spawn_s["dist_card"], "cpu_s": spawn_s["dist_cpu"], "nccl": nccl,
+                 "block_s": block_s, "note": "spawns at once with tp_parity's (block_s)"}
+    emit(dist_info)
+    bad += [(arch, k) for arch, row in archs.items() for k, v in row.items()
+            if not (all(s["ok"] for s in v) if isinstance(v, list) else v["ok"])]
     if isinstance(nccl, dict):
         bad += [("nccl", arch, k) for arch, row in nccl["archs"].items() for k, v in row.items()
                 if not (all(s["ok"] for s in v) if isinstance(v, list) else v["ok"])]
-    if bad or (device == "cuda" and not info["launches"]["flash_attention"]):
-        raise AssertionError(f"dist_parity failed: {bad}")
-    return info
+    if device == "cuda" and not dist_info["launches"]["flash_attention"]:
+        bad.append("dist_parity: no flash launch")
+
+    # --- tp_parity
+    checks = _compare_tp(results["tp_serve_card"], results["tp_serve_cpu"],
+                         results["tp_train_card"], results["tp_train_cpu"])
+    tp_nccl = "not run: 1 card"
+    if device == "cuda" and torch.cuda.device_count() >= one_two.size:
+        serves = run_ranks(_tp_serve_rank, one_two, tp_in["serve"], backend="nccl",
+                           device=device, timeout_s=DIST_TIMEOUT_S)
+        on_four = torch.cuda.device_count() >= two_two.size
+        trains = (run_ranks(_tp_train_rank, two_two, tp_in["train"], backend="nccl",
+                            device=device, timeout_s=DIST_TIMEOUT_S)
+                  if on_four else recs["tp_train_card"])
+        tp_nccl = {"checks": _compare_tp([r["result"] for r in serves], results["tp_serve_cpu"],
+                                         [r["result"] for r in trains],
+                                         results["tp_train_cpu"]),
+                   "transport": transport_name("nccl", device, one_two.size),
+                   "train_2x2": on_four}
+    serve_recs = recs["tp_serve_card"]
+    tp_info = {
+        "phase": "tp_parity",
+        "transport": {"serve": transport_name(DIST_BACKEND, device, one_two.size),
+                      "train": transport_name(DIST_BACKEND, device, two_two.size)},
+        "reference_transport": "gloo, the same ranks on cpu",
+        "config": {"reduce": 8, "serve_mesh": "1x2", "train_mesh": "2x2",
+                   "prompts": list(TP_PARITY_PROMPTS), "gen": TP_PARITY_GEN,
+                   "cache_dtype": "float32", "train_batch": list(DIST_PARITY_BATCH),
+                   "steps": DIST_PARITY_STEPS, "adamw": TRAIN_PARITY_ADAMW},
+        "checks": checks, "nccl": tp_nccl,
+        "decode_lse_launches_by_rank": [r["decode_lse_launches"] for r in serve_recs],
+        "serve_ranks": _ranks_info(serve_recs), "train_ranks": _ranks_info(recs["tp_train_card"]),
+        "launches": summed_launches(serve_recs + recs["tp_train_card"]),
+        "card_1x2_spawn_s": spawn_s["tp_serve_card"],
+        "card_2x2_spawn_s": spawn_s["tp_train_card"],
+        "cpu_1x2_spawn_s": spawn_s["tp_serve_cpu"], "cpu_2x2_spawn_s": spawn_s["tp_train_cpu"],
+        "block_s": block_s, "note": "spawns at once with dist_parity's (block_s)"}
+    emit(tp_info)
+    bad += [k for k, v in checks.items() if not v["ok"]]
+    if isinstance(tp_nccl, dict):
+        bad += [("nccl", k) for k, v in tp_nccl["checks"].items() if not v["ok"]]
+    if device == "cuda" and not (tp_info["launches"]["flash_attention"]
+                                 and all(tp_info["decode_lse_launches_by_rank"])):
+        bad.append("tp_parity: no flash launch or no log-sum-exp decode on a rank")
+    if bad:
+        raise AssertionError(f"rank parity failed: {bad}")
+    return {"dist_parity": dist_info, "tp_parity": tp_info}, block_s
 
 
-def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int = 1,
-                     batch: int = DIST_TRAIN[1], seq: int = DIST_TRAIN[2]) -> dict:
-    """``launch.train.main --mesh 2x1 --dist-backend gloo``: qwen3-0.6b (at
-    full width with ``reduce`` 1, all 28 layers), the train phase's global
-    batches and seed, 2 steps and a checkpoint at 2, then a run resumed
-    from that checkpoint alone for step 2, which ends in its checkpoint at
-    3. Then the elastic restart: that step-3 checkpoint (written by two
+def _dist_cfg(reduce: int):
+    """DIST_TRAIN's arch at ``reduce`` (full width at 1), its depth cut to
+    DIST_TRAIN_LAYERS."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    return _cut_depth(serve.reduce_config, DIST_TRAIN_LAYERS, configs.get_config(DIST_TRAIN[0]),
+                      reduce)
+
+
+def _cut_depth(reduce_config, n_layers: int, cfg, factor: int):
+    """``reduce_config(cfg, factor)`` with at most ``n_layers`` layers."""
+    cut = reduce_config(cfg, factor)
+    return dataclasses.replace(cut, n_layers=min(n_layers, cut.n_layers))
+
+
+def _cut_depth_rank(n_layers: int, comm, args):
+    """A rank of ``launch.train --mesh`` under `_launch_depth` (a spawned
+    process: the parent's patch is not there)."""
+    import functools
+
+    from repro_torch.launch import train as train_mod
+
+    rank_fn = train_mod._train_rank
+    train_mod.reduce_config = functools.partial(_cut_depth, train_mod.reduce_config, n_layers)
+    return rank_fn(comm, args)
+
+
+@contextlib.contextmanager
+def _launch_depth(n_layers: int):
+    """``launch.train.main`` with the model's depth cut to ``n_layers`` (its
+    width as ``--reduce`` gives it), on one device and in the ranks of a
+    ``--mesh`` run."""
+    import functools
+
+    from repro_torch.launch import train as train_mod
+
+    saved = train_mod.reduce_config, train_mod._train_rank
+    train_mod.reduce_config = functools.partial(_cut_depth, saved[0], n_layers)
+    train_mod._train_rank = functools.partial(_cut_depth_rank, n_layers)
+    try:
+        yield
+    finally:
+        train_mod.reduce_config, train_mod._train_rank = saved
+
+
+def phase_train_fsdp(device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
+                     seq: int = DIST_TRAIN[2]) -> dict:
+    """``launch.train.main`` of qwen3-0.6b (at full width with ``reduce``
+    1), its depth cut to DIST_TRAIN_LAYERS (`_launch_depth`), the train
+    phase's global batches and seed: first on one device, TRAIN_STEPS steps
+    (the baseline of every training phase across ranks); then ``--mesh 2x1
+    --dist-backend gloo``, 1 step and a checkpoint at 1, then a run resumed
+    from that checkpoint alone for step 1, which ends in its checkpoint at
+    2. Then the elastic restart: that step-2 checkpoint (written by two
     ranks) restored on one rank (``elastic_mesh(1, 1)``'s shardings) and
-    the fourth step taken on one device. The four losses against the
-    single-card train phase's (``single``; run here at 1x1 where not
-    given): step 1 within rtol 1e-5, the later ones 1e-3."""
+    the third step taken on one device. The three losses against the
+    one-device run's: step 1 within rtol 1e-5, the later ones 1e-3. Each
+    run's one step is its first: ``step_ms`` includes its warm-up."""
     import shutil
 
     import torch
 
-    from repro_torch import configs
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.distributed import sharding
     from repro_torch.distributed.elastic import elastic_mesh
-    from repro_torch.launch import serve, train as train_mod
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import LM
     from repro_torch.models.layers import tree_map
     from repro_torch.optim import AdamW, AdamWConfig, TrainState, cosine_schedule
@@ -3501,34 +3814,39 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
     root = ROOT / "build" / "ckpt_train_fsdp"
     shutil.rmtree(root, ignore_errors=True)
     # Every step lies in launch.train's 10-step warm-up, so its learning
-    # rate is the single-card run's whatever --steps says.
+    # rate is the one-device run's whatever --steps says.
     argv = ["--arch", arch, "--reduce", str(reduce), "--batch", str(batch), "--seq", str(seq),
             "--ckpt-every", str(FSDP_CKPT_AT), "--log-every", "1", "--device", device]
     dist = ["--mesh", "2x1", "--dist-backend", DIST_BACKEND]
     try:
-        if single is None:
+        with _launch_depth(DIST_TRAIN_LAYERS):
             one_card = {}
+            t0 = time.perf_counter()
             single = {"losses": train_mod.main(argv + ["--steps", str(TRAIN_STEPS)],
                                                record=one_card)}
+            single_s = time.perf_counter() - t0
             single["grad_norms"] = [r["grad_norm"] for r in one_card["steps"]]
-        first = {}
-        t0 = time.perf_counter()
-        losses = train_mod.main(argv + dist + ["--steps", str(FSDP_STEPS), "--ckpt-dir",
-                                               str(root / "a")], record=first)
-        first_s = time.perf_counter() - t0
-        os.makedirs(root / "b")
-        shutil.copytree(root / "a" / f"step_{FSDP_CKPT_AT:08d}",
-                        root / "b" / f"step_{FSDP_CKPT_AT:08d}")
-        resumed_rec = {}
-        t0 = time.perf_counter()
-        resumed = train_mod.main(argv + dist + ["--steps", str(FSDP_CKPT_AT + 1), "--ckpt-dir",
-                                                str(root / "b"), "--resume"], record=resumed_rec)
-        resume_s = time.perf_counter() - t0
+            single["step_ms"] = float(np.median([r["s"] for r in one_card["steps"][1:]])) * 1e3
+            _free_card(device)
+            first = {}
+            t0 = time.perf_counter()
+            losses = train_mod.main(argv + dist + ["--steps", str(FSDP_STEPS), "--ckpt-dir",
+                                                   str(root / "a")], record=first)
+            first_s = time.perf_counter() - t0
+            os.makedirs(root / "b")
+            shutil.copytree(root / "a" / f"step_{FSDP_CKPT_AT:08d}",
+                            root / "b" / f"step_{FSDP_CKPT_AT:08d}")
+            resumed_rec = {}
+            t0 = time.perf_counter()
+            resumed = train_mod.main(argv + dist + ["--steps", str(FSDP_CKPT_AT + 1),
+                                                    "--ckpt-dir", str(root / "b"), "--resume"],
+                                     record=resumed_rec)
+            resume_s = time.perf_counter() - t0
 
         # Elastic restart: the resumed run's final checkpoint on one rank,
         # one step on.
         t0 = time.perf_counter()
-        cfg = serve.reduce_config(configs.get_config(arch), reduce)
+        cfg = _dist_cfg(reduce)
         lm = LM(cfg)
         specs = lm.param_specs()
         one = elastic_mesh(1, 1)
@@ -3553,23 +3871,23 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
         shutil.rmtree(root, ignore_errors=True)
 
     # Steps 0 .. FSDP_STEPS - 1, the resumed step and the elastic one,
-    # against the single card's.
+    # against the one-device run's.
     run = losses + resumed + [elastic_loss]
     want = single["losses"][:len(run)]
     rel = np.abs(np.subtract(run, want)) / np.abs(want)
     steps = first["steps"]
-    step_s = float(np.median([r["s"] for r in steps[1:]]))  # a run's first step warms up
+    step_s = float(min(r["s"] for r in steps + resumed_rec["steps"]))  # each a run's first
     info = {"phase": "train_fsdp", "transport": first["transport"], "arch": arch,
-            "reduce": reduce, "batch": batch, "seq": seq, "steps": FSDP_STEPS,
-            "checkpoint_at": FSDP_CKPT_AT, "resumed_steps": len(resumed),
+            "reduce": reduce, "layers": cfg.n_layers, "batch": batch, "seq": seq,
+            "steps": FSDP_STEPS, "checkpoint_at": FSDP_CKPT_AT, "resumed_steps": len(resumed),
             "params": first["n_params"], "losses": losses, "resumed_losses": resumed,
-            "single_card_losses": want, "loss_rel_diff": rel.tolist(),
+            "single_card_losses": single["losses"], "loss_rel_diff": rel.tolist(),
             "single_card_grad_norms": single["grad_norms"],
             "rtol": [DIST_FIRST_RTOL, DIST_LATER_RTOL],
             "elastic": {"mesh": one.shape, "restored_step": elastic_step, "loss": elastic_loss,
                         "s": elastic_s},
             "step_s": [r["s"] for r in steps + resumed_rec["steps"]], "step_ms": step_s * 1e3,
-            "single_card_step_ms": single.get("step_ms"),
+            "single_card_step_ms": single["step_ms"], "single_card_run_s": single_s,
             "tokens_per_s": batch * seq / step_s,
             "comm_bytes_per_step": steps[-1]["comm_bytes"],
             "first_run_s": first_s, "resume_run_s": resume_s,
@@ -3589,21 +3907,98 @@ def phase_train_fsdp(single: Optional[dict] = None, device="cuda", reduce: int =
     return info
 
 
-def _compressed_rank(comm, arch: str, reduce: int, batch: int, seq: int) -> dict:
-    """COMPRESSED_STEPS compressed-DP steps (remat) of ``arch`` from seed
-    0's weights on the global batches of ``launch.train``'s data and its
-    optimizer. After the first step: the global norm of the synchronised
-    gradient that AdamW was given, and the mean over the ranks of the
-    norm of each rank's new error-feedback residual."""
+def phase_train_tp(fsdp: dict, device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
+                   seq: int = DIST_TRAIN[2]) -> dict:
+    """``launch.train.main --mesh 1x2 --dist-backend gloo``: train_fsdp's
+    model (qwen3-0.6b at full width with ``reduce`` 1, DIST_TRAIN_LAYERS
+    layers), batches and seed, TRAIN_TP_STEPS FSDP x TP steps (``data`` is
+    1: tensor parallelism alone) and a checkpoint at the last, gathered to
+    rank 0; then ``launch.train.main --resume`` from it on one device for
+    one step more. The losses against train_fsdp's one-device run
+    (``fsdp["single_card_losses"]``): step 1 within rtol 1e-5, later
+    1e-3. Step ms (the second step's), bytes a step per collective kind,
+    peak memory and launches a rank."""
+    import shutil
+
+    from repro_torch.launch import train as train_mod
+
+    t_phase = time.perf_counter()
+    _free_card(device)
+    cfg = _dist_cfg(reduce)
+    root = ROOT / "build" / "ckpt_train_tp"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", DIST_TRAIN[0], "--reduce", str(reduce), "--batch", str(batch),
+            "--seq", str(seq), "--ckpt-every", str(TRAIN_TP_STEPS), "--log-every", "1",
+            "--device", device, "--ckpt-dir", str(root)]
+    try:
+        with _launch_depth(DIST_TRAIN_LAYERS):
+            first = {}
+            t0 = time.perf_counter()
+            losses = train_mod.main(argv + ["--mesh", "1x2", "--dist-backend", DIST_BACKEND,
+                                            "--steps", str(TRAIN_TP_STEPS)], record=first)
+            first_s = time.perf_counter() - t0
+            resumed_rec = {}
+            t0 = time.perf_counter()
+            resumed = train_mod.main(argv + ["--steps", str(TRAIN_TP_STEPS + 1), "--resume"],
+                                     record=resumed_rec)
+            resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    run = losses + resumed
+    want = fsdp["single_card_losses"][:len(run)]
+    rel = np.abs(np.subtract(run, want)) / np.abs(want)
+    steps = first["steps"]
+    ranks = first["ranks"]
+    info = {
+        "phase": "train_tp", "transport": first["transport"], "mesh": "1x2",
+        "arch": DIST_TRAIN[0], "layers": cfg.n_layers, "batch": batch, "seq": seq,
+        "steps": TRAIN_TP_STEPS, "params": first["n_params"], "losses": losses,
+        "restored_step": resumed_rec["steps"][0]["step"] if resumed_rec["steps"] else None,
+        "restored_loss": resumed[0] if resumed else None,
+        "single_card_losses": want, "loss_rel_diff": rel.tolist(),
+        "rtol": [DIST_FIRST_RTOL, DIST_LATER_RTOL],
+        "step_s": [r["s"] for r in steps], "step_ms": min(r["s"] for r in steps[1:]) * 1e3,
+        "single_card_step_ms": fsdp["single_card_step_ms"],
+        "comm_bytes_per_step": steps[-1]["comm_bytes"],
+        "first_run_s": first_s, "resume_run_s": resume_s,
+        "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in ranks],
+        "rank_s": [r["s"] for r in ranks],
+        "launches": {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]},
+        "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    ok = (len(run) == TRAIN_TP_STEPS + 1 and np.isfinite(run).all()
+          and rel[0] <= DIST_FIRST_RTOL and (rel[1:] <= DIST_LATER_RTOL).all()
+          and info["restored_step"] == TRAIN_TP_STEPS)
+    if device == "cuda":  # both ranks, every step of the 1x2 run
+        want_l = {k: 2 * TRAIN_TP_STEPS * v for k, v in _train_launches(cfg, seq).items()}
+        ok = ok and all(info["launches"][k] == v for k, v in want_l.items())
+    if not ok:
+        raise AssertionError(f"train_tp failed: {info}")
+    return info
+
+
+def _compressed_pp_rank(comm, arch: str, reduce: int, batch: int, seq: int,
+                        n_microbatches: int) -> dict:
+    """Both runs of one spawn, from seed 0's weights drawn once: the
+    2-stage GPipe loss and this stage's gradients on a pod mesh of the same
+    ranks (rank 1 leaves out the replicated leaves: rank 0's are equal),
+    then COMPRESSED_STEPS compressed-DP steps (remat) on ``comm``'s data
+    mesh over the global batches of ``launch.train``'s data and its
+    optimizer. After the first compressed step: the global norm of the
+    synchronised gradient that AdamW was given, and the mean over the ranks
+    of the norm of each rank's new error-feedback residual."""
     import torch
 
-    from repro_torch import configs
+    from repro_torch import kernels
     from repro_torch.data import DataConfig, SyntheticLMData
-    from repro_torch.launch import serve
+    from repro_torch.distributed.comm import Comm
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import LM
+    from repro_torch.models.layers import tree_map
     from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
     from repro_torch.optim.adamw import leaves
     from repro_torch.optim.compression import payload_bytes
+    from repro_torch.train import pipeline
     from repro_torch.train.compressed_dp import build_compressed_dp_train_step
 
     class NormKeeping(AdamW):
@@ -3614,14 +4009,31 @@ def _compressed_rank(comm, arch: str, reduce: int, batch: int, seq: int) -> dict
             return self.norm
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = serve.reduce_config(configs.get_config(arch), reduce)
+    cfg = _dist_cfg(reduce)
     lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
+
+    # GPipe first: it reads the weights and leaves them as they are.
+    pod = Comm(make_mesh(*PP_MESH), comm.rank, backend=comm.backend, device=comm.device)
+    sp = tree_map(lambda t: t.to(comm.device), pipeline.stage_params(lm, params, pod))
+    t0 = time.perf_counter()
+    pp_loss, grads = pipeline.pp_value_and_grad(
+        pipeline.build_pp_loss(lm, pod, n_microbatches=n_microbatches), sp,
+        {"tokens": data.batch(0)["tokens"]}, pod)
+    pp_loss = float(pp_loss)  # waits for the device
+    pp_s = time.perf_counter() - t0
+    if comm.rank:
+        grads = {"blocks": grads["blocks"]}
+    del sp
+    pp_launches = kernels.launch_counts()
+
     lr = 3e-3
     opt = NormKeeping(AdamWConfig(lr=lr), cosine_schedule(lr, warmup_steps=10,
                                                            total_steps=COMPRESSED_STEPS))
     step, init, place = build_compressed_dp_train_step(lm, opt, comm, remat=True)
-    state = place(init(lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)))
-    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
+    state = place(init(params))
+    del params
     losses, secs, moved = [], [], []
     for i in range(COMPRESSED_STEPS):
         before = dict(comm.bytes)
@@ -3634,99 +4046,41 @@ def _compressed_rank(comm, arch: str, reduce: int, batch: int, seq: int) -> dict
             synced_norm = float(opt.norm)
             err = torch.sqrt(sum(torch.sum(torch.square(e)) for e in leaves(state.error)))
             error_norm = float(comm.all_reduce(err, "data")) / comm.axis_size("data")
-    return {"losses": losses, "step_s": secs, "comm_bytes": moved,
+    return {"pp": {"loss": pp_loss, "grads": grads, "s": pp_s, "launches": pp_launches},
+            "losses": losses, "step_s": secs, "comm_bytes": moved,
             "payload": payload_bytes(state.inner.params), "synced_norm": synced_norm,
             "error_norm": error_norm}
 
 
-def phase_train_compressed(fsdp: dict, device="cuda", reduce: int = 1,
-                           batch: int = DIST_TRAIN[1], seq: int = DIST_TRAIN[2]) -> dict:
-    """The compressed-DP step (int8 error feedback) on two ranks, the
-    train_fsdp phase's model and batches, 2 steps (cut from 4 for the time
-    limit): step ms (the second step's), the int32 payload's bytes against
-    the float32 gradients', losses beside FSDP's. Held to the single-card
-    train phase (``fsdp["single_card_*"]``): step 1's loss within rtol
-    1e-5 (compression acts only on the update), and the norm of the
+def phase_train_compressed_pp(fsdp: dict, device="cuda", reduce: int = 1,
+                              batch: int = DIST_TRAIN[1], seq: int = DIST_TRAIN[2],
+                              n_microbatches: int = PP_MICROBATCHES) -> dict:
+    """Two runs of one spawn of two ranks, the weights drawn once
+    (`_compressed_pp_rank`); two lines, ``train_pp`` and
+    ``train_compressed``.
+
+    GPipe: train_fsdp's model (qwen3-0.6b, full width with ``reduce`` 1,
+    DIST_TRAIN_LAYERS layers) as 2 stages of 4 layers over ``pod``, 4 microbatches of 2 x 1,024: the loss within rtol
+    1e-5 of the serial loss on the same device (remat, the same weights and
+    tokens) and every gradient leaf within 1e-4 of its largest magnitude;
+    flash launches per rank.
+
+    Compressed DP (int8 error feedback): the train_fsdp phase's model and
+    batches, 2 steps (cut from 4 for the time limit): step ms (the second
+    step's), the int32 payload's bytes against the float32 gradients',
+    losses beside FSDP's. Held to train_fsdp's one-device run
+    (``fsdp["single_card_*"]``): step 1's loss within rtol 1e-5
+    (compression acts only on the update), and the norm of the
     synchronised step-1 gradient within the error feedback's own bound of
     the exact mean gradient's norm. The synchronised sum is mean(g) -
     mean(e) for the ranks' new residuals e, so the two norms differ by at
-    most mean_r |e_r| (plus 1e-3 of the norm for float sums): a wrong
-    scale or a missing rank's share breaks it."""
-    from repro_torch.distributed.comm import run_ranks, transport_name
-    from repro_torch.launch.mesh import make_mesh
-
-    t_phase = time.perf_counter()
-    _free_card(device)
-    mesh = make_mesh(*DIST_MESH)
-    recs = run_ranks(_compressed_rank, mesh, DIST_TRAIN[0], reduce, batch, seq,
-                     backend=DIST_BACKEND, device=device, timeout_s=DIST_TIMEOUT_S)
-    r0 = recs[0]["result"]
-    step_s = float(np.median(r0["step_s"][1:]))
-    exact_loss, exact_norm = fsdp["single_card_losses"][0], fsdp["single_card_grad_norms"][0]
-    loss_rel = abs(r0["losses"][0] - exact_loss) / abs(exact_loss)
-    norm_gap = abs(r0["synced_norm"] - exact_norm)
-    norm_bound = r0["error_norm"] + 1e-3 * exact_norm
-    info = {"phase": "train_compressed", "transport": transport_name(DIST_BACKEND, device,
-                                                                     mesh.size),
-            "arch": DIST_TRAIN[0], "reduce": reduce, "batch": batch, "seq": seq,
-            "steps": COMPRESSED_STEPS, "remat": True, "losses": r0["losses"],
-            "fsdp_losses": fsdp["losses"] + fsdp["resumed_losses"], "step_s": r0["step_s"], "step_ms": step_s * 1e3,
-            "fsdp_step_ms": fsdp["step_ms"], "tokens_per_s": batch * seq / step_s,
-            "single_card_first_loss": exact_loss, "first_loss_rel_diff": loss_rel,
-            "first_loss_rtol": DIST_FIRST_RTOL,
-            "first_grad_norm": {"synced": r0["synced_norm"], "single_card": exact_norm,
-                                "gap": norm_gap, "bound": norm_bound,
-                                "mean_error_norm": r0["error_norm"]},
-            "payload_bytes": r0["payload"], "comm_bytes_per_step": r0["comm_bytes"][-1],
-            **_ranks_info(recs), "phase_s": time.perf_counter() - t_phase}
-    emit(info)
-    if not (np.isfinite(r0["losses"]).all()
-            and all(r["result"]["losses"] == r0["losses"] for r in recs)
-            and loss_rel <= DIST_FIRST_RTOL and norm_gap <= norm_bound):
-        raise AssertionError(f"train_compressed failed: {info}")
-    return info
-
-
-def _pp_rank(comm, arch: str, reduce: int, tokens, n_microbatches: int) -> dict:
-    """The 2-stage GPipe loss and this stage's gradients from seed 0's
-    weights; rank 1 leaves out the replicated leaves (rank 0's are equal)."""
+    most mean_r |e_r| (plus 1e-3 of the norm for float sums): a wrong scale
+    or a missing rank's share breaks it. Returns both lines' records and
+    the launches of the spawn."""
     import torch
 
-    from repro_torch import configs
-    from repro_torch.launch import serve
-    from repro_torch.models import LM
-    from repro_torch.models.layers import tree_map
-    from repro_torch.train import pipeline
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    lm = LM(serve.reduce_config(configs.get_config(arch), reduce))
-    params = lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)
-    sp = tree_map(lambda t: t.to(comm.device), pipeline.stage_params(lm, params, comm))
-    del params
-    t0 = time.perf_counter()
-    loss, grads = pipeline.pp_value_and_grad(
-        pipeline.build_pp_loss(lm, comm, n_microbatches=n_microbatches), sp,
-        {"tokens": tokens}, comm)
-    loss = float(loss)  # waits for the device
-    s = time.perf_counter() - t0
-    if comm.rank:
-        grads = {"blocks": grads["blocks"]}
-    return {"loss": loss, "grads": grads, "s": s}
-
-
-def phase_train_pp(device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
-                   seq: int = DIST_TRAIN[2], n_microbatches: int = PP_MICROBATCHES) -> dict:
-    """qwen3-0.6b (full width with ``reduce`` 1) as 2 GPipe stages of 14
-    layers over ``pod``, 4 microbatches of 2 x 1,024: the loss within
-    rtol 1e-5 of the serial loss on the same device (remat, the same
-    weights and tokens) and every gradient leaf within 1e-4 of its largest
-    magnitude; flash launches per rank."""
-    import torch
-
-    from repro_torch import configs
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.distributed.comm import run_ranks, transport_name
-    from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import LM
     from repro_torch.models.layers import tree_map
@@ -3736,7 +4090,7 @@ def phase_train_pp(device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
     t_phase = time.perf_counter()
     _free_card(device)
     arch = DIST_TRAIN[0]
-    cfg = serve.reduce_config(configs.get_config(arch), reduce)
+    cfg = _dist_cfg(reduce)
     lm = LM(cfg)
     tokens = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                         global_batch=batch)).batch(0)["tokens"]
@@ -3749,38 +4103,69 @@ def phase_train_pp(device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
     grads = tree_map(lambda g: g.cpu(), grads)
     serial_s = time.perf_counter() - t0
     del params
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    mesh = make_mesh(*PP_MESH)
-    recs = run_ranks(_pp_rank, mesh, arch, reduce, tokens, n_microbatches,
+    _free_card(device)
+    mesh = make_mesh(*DIST_MESH)
+    transport = transport_name(DIST_BACKEND, device, mesh.size)
+    t0 = time.perf_counter()
+    recs = run_ranks(_compressed_pp_rank, mesh, arch, reduce, batch, seq, n_microbatches,
                      backend=DIST_BACKEND, device=device, timeout_s=DIST_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = _ranks_info(recs)
+
     half = cfg.n_superblocks // mesh.size
     worst = 0.0
     for r in recs:
-        got, s = r["result"]["grads"], r["rank"]
-        want = {**grads, "blocks": tree_map(lambda t: t[s * half:(s + 1) * half],
+        got, stage = r["result"]["pp"]["grads"], r["rank"]
+        want = {**grads, "blocks": tree_map(lambda t: t[stage * half:(stage + 1) * half],
                                             grads["blocks"])}
         want = {k: want[k] for k in got}
         for a, b in zip(leaves(got), leaves(want)):
             worst = max(worst, float((a - b).abs().max()) / (PP_GRAD_TOL * float(b.abs().max())))
-    losses = [r["result"]["loss"] for r in recs]
-    rel = max(abs(x - serial) / abs(serial) for x in losses)
-    info = {"phase": "train_pp", "transport": transport_name(DIST_BACKEND, device, mesh.size),
-            "arch": arch, "reduce": reduce, "stages": mesh.size,
-            "layers_per_stage": half, "microbatches": n_microbatches,
-            "microbatch": [batch // n_microbatches, seq], "pp_loss": losses[0],
-            "serial_loss": serial, "loss_rel_diff": rel, "loss_rtol": PP_LOSS_RTOL,
-            "max_grad_diff_over_tolerance": worst, "grad_tol": PP_GRAD_TOL,
-            "pp_s": [r["result"]["s"] for r in recs], "serial_s": serial_s,
-            "flash_launches_by_rank": [r["launches"]["flash_attention"] for r in recs],
-            **_ranks_info(recs), "phase_s": time.perf_counter() - t_phase}
-    emit(info)
+    pp_losses = [r["result"]["pp"]["loss"] for r in recs]
+    rel = max(abs(x - serial) / abs(serial) for x in pp_losses)
+    pp = {"phase": "train_pp", "transport": transport, "arch": arch, "reduce": reduce,
+          "stages": mesh.size, "layers_per_stage": half, "microbatches": n_microbatches,
+          "microbatch": [batch // n_microbatches, seq], "pp_loss": pp_losses[0],
+          "serial_loss": serial, "loss_rel_diff": rel, "loss_rtol": PP_LOSS_RTOL,
+          "max_grad_diff_over_tolerance": worst, "grad_tol": PP_GRAD_TOL,
+          "pp_s": [r["result"]["pp"]["s"] for r in recs], "serial_s": serial_s,
+          "flash_launches_by_rank": [r["result"]["pp"]["launches"]["flash_attention"]
+                                     for r in recs],
+          "spawn_s": spawn_s, "note": "one spawn with train_compressed: launches and memory "
+                                      "in that line"}
+    emit(pp)
     # Each stage runs its layers once per microbatch (no remat under PP).
     want_flash = [half * n_microbatches] * mesh.size
     if rel > PP_LOSS_RTOL or worst > 1.0 or (
-            device == "cuda" and info["flash_launches_by_rank"] != want_flash):
-        raise AssertionError(f"train_pp failed (flash launches expected {want_flash}): {info}")
-    return info
+            device == "cuda" and pp["flash_launches_by_rank"] != want_flash):
+        raise AssertionError(f"train_pp failed (flash launches expected {want_flash}): {pp}")
+
+    r0 = recs[0]["result"]
+    step_s = float(np.median(r0["step_s"][1:]))
+    exact_loss, exact_norm = fsdp["single_card_losses"][0], fsdp["single_card_grad_norms"][0]
+    loss_rel = abs(r0["losses"][0] - exact_loss) / abs(exact_loss)
+    norm_gap = abs(r0["synced_norm"] - exact_norm)
+    norm_bound = r0["error_norm"] + 1e-3 * exact_norm
+    info = {"phase": "train_compressed", "transport": transport,
+            "arch": arch, "reduce": reduce, "batch": batch, "seq": seq,
+            "steps": COMPRESSED_STEPS, "remat": True, "losses": r0["losses"],
+            "fsdp_losses": fsdp["losses"] + fsdp["resumed_losses"], "step_s": r0["step_s"],
+            "step_ms": step_s * 1e3, "fsdp_step_ms": fsdp["step_ms"],
+            "tokens_per_s": batch * seq / step_s,
+            "single_card_first_loss": exact_loss, "first_loss_rel_diff": loss_rel,
+            "first_loss_rtol": DIST_FIRST_RTOL,
+            "first_grad_norm": {"synced": r0["synced_norm"], "single_card": exact_norm,
+                                "gap": norm_gap, "bound": norm_bound,
+                                "mean_error_norm": r0["error_norm"]},
+            "payload_bytes": r0["payload"], "comm_bytes_per_step": r0["comm_bytes"][-1],
+            **ranks, "spawn_s": spawn_s, "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    if not (np.isfinite(r0["losses"]).all()
+            and all(r["result"]["losses"] == r0["losses"] for r in recs)
+            and loss_rel <= DIST_FIRST_RTOL and norm_gap <= norm_bound):
+        raise AssertionError(f"train_compressed failed: {info}")
+    return {"train_pp": pp, "train_compressed": info, "launches": ranks["launches"],
+            "phase_s": info["phase_s"]}
 
 
 def phase_serve_dp(served: Optional[dict] = None, device="cuda", reduce: int = 1,
@@ -3836,6 +4221,319 @@ def phase_serve_dp(served: Optional[dict] = None, device="cuda", reduce: int = 1
     return info
 
 
+def _tp_generate(lm, params, prompts, gen: int, images, comm, cache_dtype=None):
+    """Greedy serving on a rank of a model mesh, its rows the whole batch:
+    `LM.prefill` (images in the batch where the arch has cross layers) and
+    `LM.decode_step` under ``serve_rules`` on this rank's shards, the cache
+    in ``cache_dtype``, the vocab-parallel argmax, the logits gathered once
+    a step."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.tensor_parallel import TensorParallel
+
+    s_max = prompts.shape[1] + gen
+    tp = TensorParallel(comm, comm.axis_size("model"), comm.axis_index("model"))
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=comm.device)}
+    if images is not None:
+        batch["images"] = images
+    with sharding.activation_ctx(comm, sharding.serve_rules(False)):
+        logits, cache, lengths = lm.prefill(params, batch, s_max=s_max, cache_dtype=cache_dtype)
+        toks, seen = [tp.argmax(logits)], [tp.gather(logits, -1)]
+        for _ in range(gen - 1):
+            logits, cache, lengths = lm.decode_step(params, {"tokens": toks[-1][:, None]},
+                                                    cache, lengths, s_max=s_max)
+            toks.append(tp.argmax(logits))
+            seen.append(tp.gather(logits, -1))
+    return torch.stack(toks, 1).cpu().numpy(), torch.stack(seen, 1).float().cpu().numpy()
+
+
+def _tp_parity_inputs() -> dict:
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    out = {"serve": {}, "train": {}}
+    for i, arch in enumerate(TP_PARITY_SERVE_ARCHS):
+        cfg = serve.reduce_config(configs.get_config(arch), 8)
+        params = LM(cfg).init(torch.Generator().manual_seed(SEED + i), torch.float32)
+        _set_gates(params, np.random.default_rng(SEED + i))
+        _perturb_norms(params, np.random.default_rng(SEED + i))
+        rng = np.random.default_rng(SEED + i)
+        out["serve"][arch] = {
+            "params": _np_tree(params),
+            "prompts": rng.integers(0, cfg.vocab_size, TP_PARITY_PROMPTS),
+            "images": (rng.normal(0, 1, (TP_PARITY_PROMPTS[0], cfg.n_image_tokens, cfg.d_model))
+                       .astype(np.float32) if cfg.n_image_tokens else None)}
+    for arch in TP_PARITY_TRAIN_ARCHS:
+        cfg = serve.reduce_config(configs.get_config(arch), 8)
+        B, S = DIST_PARITY_BATCH
+        data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                          seed=SEED + 1))
+        out["train"][arch] = {
+            "params": _np_tree(LM(cfg).init(torch.Generator().manual_seed(SEED), torch.float32)),
+            "batches": [data.batch(i) for i in range(DIST_PARITY_STEPS)]}
+    return out
+
+
+def _tp_serve_rank(comm, inputs: dict, threads: Optional[int] = None) -> dict:
+    """Each arch of ``inputs`` served greedily on this rank's shards under
+    ``serve_rules`` with a float32 cache (`_tp_generate`); ``threads``: the
+    rank's host threads, where given."""
+    import torch
+
+    if threads:
+        torch.set_num_threads(threads)
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.train.steps import param_shardings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, inp in inputs.items():
+        lm = LM(serve.reduce_config(configs.get_config(arch), 8))
+        specs = param_shardings(lm, comm.mesh, sharding.serve_rules(False))
+        params = sharding.shard_tree(_on(inp["params"], "cpu"), specs, comm.mesh, comm.coords,
+                                     comm.device)
+        images = (None if inp["images"] is None
+                  else torch.from_numpy(inp["images"]).to(comm.device))
+        out[arch] = _tp_generate(lm, params, inp["prompts"], TP_PARITY_GEN, images, comm,
+                                 torch.float32)
+        del params
+    return out
+
+
+def _tp_train_rank(comm, inputs: dict, threads: Optional[int] = None) -> dict:
+    """DIST_PARITY_STEPS FSDP x TP steps of each arch of ``inputs`` (AdamW
+    as TRAIN_PARITY_ADAMW); the losses, and the gathered params on rank 0.
+    ``threads``: the rank's host threads, where given."""
+    import torch
+
+    if threads:
+        torch.set_num_threads(threads)
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+    from repro_torch.train import build_train_step
+    from repro_torch.train.steps import gather_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, inp in inputs.items():
+        lm = LM(serve.reduce_config(configs.get_config(arch), 8))
+        cfg = AdamWConfig(**TRAIN_PARITY_ADAMW)
+        opt = AdamW(cfg, cosine_schedule(cfg.lr, warmup_steps=1, total_steps=DIST_PARITY_STEPS))
+        step, sh, _ = build_train_step(lm, opt, comm, remat=True)
+        state = opt.init(sharding.shard_tree(_on(inp["params"], "cpu"), sh.params, comm.mesh,
+                                             comm.coords, comm.device))
+        losses = []
+        for b in inp["batches"]:
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+        whole = gather_state(state, sh, comm)
+        out[arch] = {"losses": losses, "params": whole.params if whole is not None else None}
+        del state, whole
+    return out
+
+
+def _compare_tp(serves: list, cpu_serves: list, trains: list, cpu_trains: list) -> dict:
+    """Card ranks' serves and train steps against the CPU ranks'."""
+    out = {}
+    for arch in TP_PARITY_SERVE_ARCHS:
+        (tok, logits), (ctok, clogits) = serves[0][arch], cpu_serves[0][arch]
+        diff, ok = _logit_diff(logits, clogits)
+        equal = all(bool((r[arch][0] == ctok).all()) for r in serves)
+        out[f"serve_{arch}"] = {"tokens_equal": equal, "max_logit_diff": diff,
+                                "ok": ok and equal}
+    for arch in TP_PARITY_TRAIN_ARCHS:
+        got = [r[arch]["losses"] for r in trains]
+        want = cpu_trains[0][arch]["losses"]
+        rel = max(float(np.max(np.abs(np.subtract(g, want)) / np.abs(want))) for g in got)
+        worst = _leaf_worst(trains[0][arch]["params"], cpu_trains[0][arch]["params"])
+        out[f"train_{arch}"] = {"losses": got[0], "cpu_losses": want, "max_loss_rel_diff": rel,
+                                "max_param_diff_over_tolerance": worst,
+                                "ok": rel <= TRAIN_PARITY_LOSS_RTOL and worst <= 1.0}
+    return out
+
+
+def _drawn(lm, seed: int, device):
+    """``lm``'s float32 weights from ``seed``, drawn on ``device`` (a full
+    width model in seconds on the card, where the host would take tens)."""
+    import torch
+
+    return lm.init(torch.Generator(device=device).manual_seed(seed), dtype=torch.float32)
+
+
+def _tp_cfg(arch: str, reduce: int, layers):
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    cfg = serve.reduce_config(configs.get_config(arch), reduce)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+class _Part:
+    """A rank's launches, log-sum-exp launches, bytes per collective kind,
+    seconds and peak memory over one part of a spawn."""
+
+    def __init__(self, comm):
+        import torch
+
+        from repro_torch import kernels
+
+        self.comm, self.kernels = comm, kernels
+        self.launches = kernels.launch_counts()
+        self.lse = kernels.decode_lse_launches()
+        self.bytes = dict(comm.bytes)
+        self.t0 = time.perf_counter()
+        if comm.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(comm.device)
+
+    def moved(self) -> dict:
+        return {k: v - self.bytes.get(k, 0) for k, v in self.comm.bytes.items()}
+
+    def done(self) -> dict:
+        import torch
+
+        cuda = self.comm.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.comm.device)
+        return {"launches": {k: v - self.launches[k]
+                             for k, v in self.kernels.launch_counts().items()},
+                "decode_lse_launches": self.kernels.decode_lse_launches() - self.lse,
+                "comm_bytes": self.moved(), "s": time.perf_counter() - self.t0,
+                "max_memory_allocated": (int(torch.cuda.max_memory_allocated(self.comm.device))
+                                         if cuda else None)}
+
+
+def _serve_tp_one(comm, arch: str, reduce: int, layers, requests: int, prompt_len: int,
+                  gen: int) -> dict:
+    """``serve_batch`` on this rank's shards of ``arch`` (seed SEED's
+    weights drawn on the rank's device, as the one-card serve draws them):
+    a warm-up of the same requests with 2 tokens, then the timed serve
+    (logits returned: gathered once a step). Bytes per collective kind:
+    the prefill's (the warm-up's less one decode step) and a decode step's
+    ((timed - warm-up) / (gen - 2)); launches and peak memory of the timed
+    serve."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.train.steps import param_shardings
+
+    lm = LM(_tp_cfg(arch, reduce, layers))
+    specs = param_shardings(lm, comm.mesh, sharding.serve_rules(False))
+    params = sharding.shard_tree(_drawn(lm, SEED, comm.device), specs, comm.mesh, comm.coords,
+                                 comm.device)
+    prompts = np.random.default_rng(SEED).integers(0, lm.cfg.vocab_size, (requests, prompt_len))
+    warm = _Part(comm)
+    serve.serve_batch(lm, params, prompts, 2, comm=comm, return_logits=True)
+    warm_bytes = warm.moved()
+    part, timings = _Part(comm), {}
+    tokens, logits = serve.serve_batch(lm, params, prompts, gen, comm=comm, timings=timings,
+                                       return_logits=True)
+    rec = part.done()
+    step = {k: (v - warm_bytes.get(k, 0)) / (gen - 2) for k, v in rec["comm_bytes"].items()}
+    del params
+    return {"tokens": tokens, "logits": logits if comm.rank == 0 else None, "timings": timings,
+            "prefill_bytes": {k: warm_bytes.get(k, 0) - v for k, v in step.items()},
+            "decode_step_bytes": step, **rec}
+
+
+def _serve_tp_rank(comm, runs: dict, reduce: int) -> dict:
+    """serve_tp's serves on one rank, one arch after another."""
+    return {arch: _serve_tp_one(comm, arch, reduce, *run) for arch, run in runs.items()}
+
+
+def phase_serve_tp(device="cuda", reduce: int = 1, runs: Optional[dict] = None) -> dict:
+    """``serve_batch`` at full width on ``--mesh 1x2`` (tensor parallelism;
+    host-staged gloo, two ranks sharing the card), one spawn alone on the
+    host (SERVE_TP_RUNS: qwen3-0.6b at full depth, its KV heads split;
+    recurrentgemma-2b at 5 layers, its 2,048-slot ring sequence-sharded),
+    against a one-card serve of the same weights, prompts and tokens (a
+    2-token warm-up first, as the ranks do): tokens equal or parting only
+    at a near tie, logits up to it within PARITY_TOL. Prefill s, decode ms
+    a step, tokens/s, bytes per collective kind (prefill, a decode step),
+    peak memory, launches (exact) and log-sum-exp launches a rank."""
+    from repro_torch.distributed.comm import run_ranks, transport_name
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM
+
+    t_phase = time.perf_counter()
+    runs = runs or SERVE_TP_RUNS
+    _free_card(device)
+    base = {}
+    for arch, (layers, requests, prompt_len, gen) in runs.items():
+        lm = LM(_tp_cfg(arch, reduce, layers))
+        params = _drawn(lm, SEED, device)
+        prompts = np.random.default_rng(SEED).integers(0, lm.cfg.vocab_size,
+                                                       (requests, prompt_len))
+        serve.serve_batch(lm, params, prompts, 2)  # warm-up
+        timings = {}
+        tokens, logits = serve.serve_batch(lm, params, prompts, gen, timings=timings,
+                                           return_logits=True)
+        base[arch] = {"tokens": tokens, "logits": logits, "timings": timings}
+        del params
+        _free_card(device)
+    base_s = time.perf_counter() - t_phase
+    mesh = make_mesh(*TP_MESH)
+    t0 = time.perf_counter()
+    recs = run_ranks(_serve_tp_rank, mesh, runs, reduce, backend=DIST_BACKEND, device=device,
+                     timeout_s=DIST_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    info = {"phase": "serve_tp", "transport": transport_name(DIST_BACKEND, device, mesh.size),
+            "mesh": "1x2", "runs": {}, "one_card_s": base_s, "spawn_s": spawn_s}
+    launches, bad = collections.Counter(), []
+    for arch, (layers, requests, prompt_len, gen) in runs.items():
+        res = [r["result"][arch] for r in recs]
+        one = base[arch]
+        agree = _greedy_agreement(res[0]["tokens"], res[0]["logits"], one["tokens"],
+                                  one["logits"])
+        t = [x["timings"] for x in res]
+        prefill, decode = max(x["prefill_s"] for x in t), max(x["decode_s"] for x in t)
+        cfg = _tp_cfg(arch, reduce, layers)
+        per_rank = _serve_launches(cfg, prompt_len, gen)
+        kinds = cfg.pattern * cfg.n_superblocks + cfg.remainder
+        lse_want = kinds.count("local_attn") * (gen - 1) if arch == "recurrentgemma-2b" else 0
+        ot = one["timings"]
+        info["runs"][arch] = {
+            "arch": arch, "layers": cfg.n_layers, "requests": requests,
+            "prompt_len": prompt_len, "gen": gen, "prefill_s": prefill,
+            "decode_ms_per_step": decode * 1e3 / t[0]["decode_steps"],
+            "tokens_per_s": requests * gen / (prefill + decode),
+            "one_card": {"prefill_s": ot["prefill_s"],
+                         "decode_ms_per_step": ot["decode_s"] * 1e3 / ot["decode_steps"],
+                         "tokens_per_s": requests * gen / (ot["prefill_s"] + ot["decode_s"])},
+            "prefill_bytes_by_kind": res[0]["prefill_bytes"],
+            "decode_step_bytes_by_kind": res[0]["decode_step_bytes"],
+            "max_memory_allocated_by_rank": [x["max_memory_allocated"] for x in res],
+            "launches_by_rank": [x["launches"] for x in res],
+            "decode_lse_launches_by_rank": [x["decode_lse_launches"] for x in res],
+            "decode_lse_launches_expected": lse_want, "timings_by_rank": t,
+            "part_s_by_rank": [x["s"] for x in res], "against_one_card": agree}
+        for x in res:
+            launches.update(x["launches"])
+        if not agree["ok"] or res[0]["tokens"].shape != (requests, gen):
+            bad.append((arch, "tokens or logits"))
+        if device == "cuda" and (
+                any(x["launches"][k] != v for x in res for k, v in per_rank.items())
+                or any(x["decode_lse_launches"] != lse_want for x in res)):
+            bad.append((arch, f"launches, expected {per_rank}, {lse_want} lse"))
+    info["launches"] = dict(launches)
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit(info)
+    if bad:
+        raise AssertionError(f"serve_tp failed: {bad}")
+    return info
+
+
 def _greedy_agreement(tokens, logits, ref_tokens, ref_logits) -> dict:
     """Two greedy runs of the same requests: per request, the first step
     where the tokens differ (none: all equal), and the logits up to and
@@ -3871,7 +4569,7 @@ def _entry(name: str, main: dict, launches: int) -> dict:
 
 def _training(name: str, grad: dict, trains: dict, parity: dict) -> dict:
     """A trained kernel's launches in the training phases (the first run of
-    each: 4 steps) and its Function's forward / backward times."""
+    each: 3 steps) and its Function's forward / backward times."""
     return {
         "train_launches_by_phase": {
             **{p: out["launches"][name] for p, out in trains.items()},
@@ -3907,7 +4605,10 @@ def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict,
                         "library_ms_null_because": NO_LIBRARY})
     gemma = rec_served["recurrentgemma-2b"]
     trained = lambda name: _training(name, grad, trains, parity)  # noqa: E731
+    lse_rows = att.get("decode_attention_lse", [])
     for name, rows in att.items():
+        if name == "decode_attention_lse":
+            continue
         # The dtypes the serving path uses; recurrentgemma-2b's shape after.
         entry = _entry(name, rows[0], served["launches"][name])
         by_phase = {p["phase"]: p["launches"][name]
@@ -3920,6 +4621,16 @@ def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict,
             entry.update(extra)
         # The phases across ranks, summed over the ranks.
         by_phase.update({p: out["launches"][name] for p, out in dist.items()})
+        if name == "decode_attention" and lse_rows:
+            # The log-sum-exp output (sequence-sharded caches): its calls at
+            # two shards of each serving shape, and its launches on the
+            # model-axis phases, summed over the ranks.
+            entry["lse"] = {
+                "shapes": lse_rows,
+                "launches_by_phase": {
+                    "serve_tp": sum(sum(r["decode_lse_launches_by_rank"])
+                                    for r in dist["serve_tp"]["runs"].values()),
+                    "tp_parity": sum(dist["tp_parity"]["decode_lse_launches_by_rank"])}}
         # The MoE and VLM serves' layer-0 (and first cross layer's) calls
         # against the plain version: GQA groups 6, 5, 4; the image cache.
         entry["checks_by_phase"] = {
@@ -3931,7 +4642,9 @@ def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict,
         serve = rec_served[arch]
         entries.append({**_entry(name, rec[name][0], serve["launches"][name]),
                         "launches_by_phase": {serve["phase"]: serve["launches"][name],
-                                              **extra.pop("train_launches_by_phase")},
+                                              **extra.pop("train_launches_by_phase"),
+                                              **{p: out["launches"][name]
+                                                 for p, out in dist.items()}},
                         **extra,
                         "library_ms_null_because": NO_SCAN_LIBRARY, "shapes": rec[name]})
     return {"kernels": entries}
@@ -3969,11 +4682,16 @@ def main() -> int:
     grad = phase_grad_kernels()
     trains = {phase: phase_train(phase, *run) for phase, run in TRAIN_RUNS.items()}
     parity = phase_train_parity()
-    dist = {"dist_parity": phase_dist_parity()}
-    dist["train_fsdp"] = phase_train_fsdp(trains["train"])
-    dist["train_compressed"] = phase_train_compressed(dist["train_fsdp"])
-    dist["train_pp"] = phase_train_pp()
+    dist, parity_s = phase_rank_parity()
+    dist["train_fsdp"] = phase_train_fsdp()
+    dist["train_tp"] = phase_train_tp(dist["train_fsdp"])
+    dist["train_compressed_pp"] = phase_train_compressed_pp(dist["train_fsdp"])
     dist["serve_dp"] = phase_serve_dp(served)
+    dist["serve_tp"] = phase_serve_tp()
+    phase_s = {"dist_parity+tp_parity": parity_s,
+               **{p: out["phase_s"] for p, out in dist.items() if "phase_s" in out}}
+    emit({"phase": "dist_budget", "phase_s": phase_s, "total_s": sum(phase_s.values()),
+          "budget_s": DIST_BUDGET_S, "script_s": time.perf_counter() - T_START})
     emit(kernels_line(kern, full, dynamic, att, served, rec, rec_served, rest, grad, trains,
                       parity, families, family_parity, dist))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

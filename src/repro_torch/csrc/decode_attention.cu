@@ -65,6 +65,12 @@
 //     memory, taking each split's factor exp(m - M) once. No workspace, no
 //     second launch. A sequence with one valid split writes its output
 //     directly.
+//   - Log-sum-exp (optional): where the caller passes `lse`, the writer of
+//     a row's output also writes m + log(l), the log-sum-exp of its scaled
+//     logits over the valid positions, from the same (max, sum) the combine
+//     merged: a cache whose sequence is split over ranks merges the ranks'
+//     partial outputs by it. A row with no valid position then gets a zero
+//     output and -inf (without `lse`: NaN, as the plain version's 0 / 0).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -99,6 +105,7 @@ struct Params {
   const void* v;
   const int* lengths;
   void* out;
+  float* lse;  // (B, H) log-sum-exp of each row, or null
   long long qsB, qsH;
   int H, KVH, S, D, G;
   int hp, nhb;           // heads per CTA, head blocks per KV head
@@ -343,8 +350,13 @@ __global__ void __launch_bounds__(kThreads, HB <= 4 ? 4 : 2)
   // past the valid length without loading anything.
   if (nv <= 1 && split > 0) return;
   if (nv == 0) {  // nothing to attend to: NaN, as the plain version's 0 / 0
+    // (with the log-sum-exp: a zero output and -inf, an empty shard's share)
+    const float fill = p.lse ? 0.0f : __int_as_float(0x7fffffff);
     for (int i = threadIdx.x; i < hc * D; i += kThreads)
-      store_out(p.out, out_base + i, __int_as_float(0x7fffffff), p.q_dtype);
+      store_out(p.out, out_base + i, fill, p.q_dtype);
+    if (p.lse)
+      for (int h = threadIdx.x; h < hc; h += kThreads)
+        p.lse[(long long)b * p.H + hq0 + h] = -INFINITY;
     return;
   }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -710,6 +722,9 @@ __global__ void __launch_bounds__(kThreads, HB <= 4 ? 4 : 2)
   if (nv == 1) {
     for (int i = tid; i < hc * D; i += kThreads)
       store_out(p.out, out_base + i, sAcc[i] / sL[i / D], p.q_dtype);
+    if (p.lse)
+      for (int h = tid; h < hc; h += kThreads)
+        p.lse[(long long)b * p.H + hq0 + h] = sM[h] + logf(sL[h]);
     return;
   }
   // Combine through distributed shared memory: CTA `split` of the cluster
@@ -738,6 +753,7 @@ __global__ void __launch_bounds__(kThreads, HB <= 4 ? 4 : 2)
       }
     }
     sL2[h] = Lh;
+    if (p.lse && split == 0) p.lse[(long long)b * p.H + hq0 + h] = M + logf(Lh);
   }
   __syncthreads();
   const int cw = cdiv(D, p.splits), c0 = split * cw, nc = max(0, min(D, c0 + cw) - c0);
@@ -838,10 +854,11 @@ int decode_attention_splits(int B, int H, int KVH, int S, int D, int cache_dtype
 // (qsB, qsH) and a contiguous last dimension; the caches are contiguous
 // (B, KVH, S, D) (16-byte copies where D * element size is a multiple of 16
 // and both are 16-byte aligned, element copies otherwise); lengths is (B,)
-// int32; out is contiguous (B, H, D) in q's dtype. One launch on `stream`;
+// int32; out is contiguous (B, H, D) in q's dtype; lse is null or a
+// contiguous (B, H) float32 buffer for each row's log-sum-exp. One launch on `stream`;
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue.
 int decode_attention_launch(const void* q, const void* k, const void* v, const void* lengths,
-                            void* out, int q_dtype,
+                            void* out, void* lse, int q_dtype,
                             int cache_dtype, int B, int H, int KVH, int S, int D,
                             long long qsB, long long qsH, float scale, void* stream) {
   if (q_dtype < 0 || q_dtype > 2 || cache_dtype < 0 || cache_dtype > 2)
@@ -859,6 +876,7 @@ int decode_attention_launch(const void* q, const void* k, const void* v, const v
   prm.v = v;
   prm.lengths = static_cast<const int*>(lengths);
   prm.out = out;
+  prm.lse = static_cast<float*>(lse);
   prm.qsB = qsB;
   prm.qsH = qsH;
   prm.H = H;

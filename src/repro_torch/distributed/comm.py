@@ -11,11 +11,18 @@ itself, through `torch.distributed`:
   coordinates, its device, and one process group per set of axes (every
   slice of the other axes gets its own), built once after
   ``init_process_group``. Its collectives take an axis name or a tuple of
-  them: `all_reduce` (sum, max), `all_gather`, `reduce_scatter` and
-  `ring_permute`. A collective over axes of size 1 is the identity.
-- Autograd: `all_gather`'s backward reduce-scatters the cotangent;
-  `all_reduce` (sum) passes its cotangent through, since every rank
-  differentiates its own copy of the replicated result; `ring_permute`
+  them: `all_reduce` (sum, max), `all_gather`, `reduce_scatter`,
+  `ring_permute`, `copy_to` and `gather` (to one rank). A collective
+  over axes of size 1 is the identity.
+- Autograd: `all_gather`'s backward reduce-scatters the cotangent (each
+  rank's is a partial sum, as for a gathered parameter), or with
+  ``grad="slice"`` keeps this rank's piece of it (each rank's is whole,
+  as for an activation used replicated after the gather); `all_reduce`
+  (sum) passes its cotangent through, since every rank differentiates
+  its own copy of the replicated result; `copy_to`, its conjugate, is the
+  identity forward and all-reduces the cotangent backward (Megatron's
+  copy to the model-parallel region: the input of a product whose
+  columns are split over the axis); `ring_permute`
   sends to ``(i + 1) % n`` and receives from ``(i - 1) % n``, and its
   backward sends the cotangent the other way, as jax transposes
   ``ppermute``. `reduce_scatter` carries no gradient (it reduces
@@ -178,9 +185,32 @@ class Comm:
         dist.all_reduce(buf, op=op, group=group)
         return self._from_wire(buf, x)
 
-    def all_gather(self, x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
-        """The ranks' ``x`` concatenated along ``dim`` in axis order."""
-        return _AllGather.apply(x, self, axis, dim)
+    def copy_to(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """``x`` itself; the backward sums the cotangent over ``axis``."""
+        return _CopyTo.apply(x, self, axis)
+
+    def all_gather(self, x: torch.Tensor, axis, dim: int = 0, *,
+                   grad: str = "sum") -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in axis order. The
+        backward reduce-scatters the cotangent (``grad="sum"``) or keeps
+        this rank's piece of it (``grad="slice"``)."""
+        if grad not in ("sum", "slice"):
+            raise ValueError(f"all_gather grad {grad!r}: use 'sum' or 'slice'")
+        return _AllGather.apply(x, self, axis, dim, grad)
+
+    def gather(self, x: torch.Tensor, axis) -> Optional[List[torch.Tensor]]:
+        """Every rank's ``x`` along ``axis`` on the first rank of the axis
+        alone (a list in axis order, on ``x``'s device); None on the
+        others. No gradient."""
+        group, members = self._group(axis)
+        if group is None:
+            return [x]
+        buf = self._to_wire(x)
+        first = self.rank == members[0]
+        parts = [torch.empty_like(buf) for _ in members] if first else None
+        self._count("gather", buf)
+        dist.gather(buf, parts, dst=members[0], group=group)
+        return [self._from_wire(t, x) for t in parts] if first else None
 
     def _all_gather(self, x, axis, dim):
         group, members = self._group(axis)
@@ -240,15 +270,31 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._all_reduce(g.contiguous(), ctx.axis, dist.ReduceOp.SUM), None, None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, comm, axis, dim):
-        ctx.comm, ctx.axis, ctx.dim = comm, axis, dim
+    def forward(ctx, x, comm, axis, dim, grad):
+        ctx.comm, ctx.axis, ctx.dim, ctx.grad = comm, axis, dim, grad
         return comm._all_gather(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm.reduce_scatter(g.contiguous(), ctx.axis, ctx.dim), None, None, None
+        comm, axis, dim = ctx.comm, ctx.axis, ctx.dim
+        if ctx.grad == "sum":
+            return comm.reduce_scatter(g.contiguous(), axis, dim), None, None, None, None
+        _, members = comm._group(axis)
+        n = g.shape[dim] // len(members)
+        return g.narrow(dim, members.index(comm.rank) * n, n), None, None, None, None
 
 
 class _RingPermute(torch.autograd.Function):
@@ -305,6 +351,7 @@ def _rank_main(rank: int, mesh, backend: str, device: str, workdir: str,
             torch.cuda.synchronize(dev)
         record = {"result": _to_cpu(out), "rank": rank, "device": str(dev),
                   "s": time.perf_counter() - t0, "launches": kernels.launch_counts(),
+                  "decode_lse_launches": kernels.decode_lse_launches(),
                   "max_memory_allocated": (int(torch.cuda.max_memory_allocated(dev))
                                            if dev.type == "cuda" else None),
                   "comm_bytes": dict(comm.bytes)}
@@ -330,7 +377,8 @@ def run_ranks(fn: Callable, mesh, *args, backend: str, device: str = "cuda",
     """Run ``fn(comm, *args)`` on one spawned process per position of
     ``mesh``; returns each rank's record in rank order: ``result`` (what
     ``fn`` returned, tensors moved to the CPU), ``launches`` (its kernel
-    launches), ``max_memory_allocated``, ``comm_bytes`` and ``s``.
+    launches; ``decode_lse_launches``: decode's that wrote the log-sum-exp),
+    ``max_memory_allocated``, ``comm_bytes`` and ``s``.
 
     ``fn`` and ``args`` are pickled: ``fn`` must be a module-level function
     of a module that the rank can import. ``backend`` has no default (see

@@ -21,21 +21,30 @@ equal. `shard_index` turns a spec into one rank's slices of a leaf: a dim
 over axes (a, b) splits into size(a) * size(b) pieces, a-major, as jax
 lays them out.
 
+A rank computes on its own shards: `sharded_dim` lists the dims a spec
+splits (a leaf may be split over two: ``wq`` under `train_rules` is
+(embed -> data, heads -> model)), `gather_leaf` rebuilds the whole leaf
+(or only its ``data`` shards, for the FSDP step), and `split_on_heads`
+tells block code whether a ``model`` shard holds whole heads.
+
 ``activation_ctx`` / ``constrain`` keep the reference's names. In the
 reference the context is (mesh, rules) and ``constrain`` a sharding
 constraint for GSPMD; here a rank computes on its local tensors, so
 ``constrain`` is a no-op, and the context is (comm, rules): the rank's
 `repro_torch.distributed.comm.Comm`, which carries the mesh. Model code
 reads it where a function of the global batch needs the batch axes
-(`models.blocks.moe_apply`'s groups, `models.lm.LM.loss`'s count).
+(`models.blocks.moe_apply`'s groups, `models.lm.LM.loss`'s count), and
+`repro_torch.distributed.tensor_parallel` where ``model`` splits the
+parameters.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 Rules = Dict[str, Any]  # logical axis -> mesh axis | tuple | None
 Spec = Tuple[Any, ...]
@@ -205,15 +214,21 @@ def shard_index(spec: Spec, shape: Tuple[int, ...], mesh, coords: Dict[str, int]
     return tuple(index)
 
 
-def sharded_dim(spec: Spec, mesh) -> Optional[Tuple[int, Tuple[str, ...]]]:
-    """(dim, axes) of the one dim ``spec`` splits over axes of size > 1, or
-    None; raises if it splits several (the model axis is not ported)."""
+def sharded_dim(spec: Spec, mesh) -> List[Tuple[int, Tuple[str, ...]]]:
+    """[(dim, axes)] of every dim ``spec`` splits over axes of size > 1, in
+    dim order (empty where the leaf is whole on every rank)."""
     found = [(d, tuple(a for a in _as_axes(e) if mesh.shape[a] > 1)) for d, e in enumerate(spec)]
-    found = [(d, axes) for d, axes in found if axes]
-    if len(found) > 1:
-        raise NotImplementedError(f"spec {spec} splits {len(found)} dims; only meshes with "
-                                  "model == 1 are ported (ROADMAP.md, module queue)")
-    return found[0] if found else None
+    return [(d, axes) for d, axes in found if axes]
+
+
+def split_on_heads(local: int, unit: int) -> bool:
+    """Whether a shard of ``local`` columns of a dim split over ``model``
+    holds whole heads of ``unit`` columns: the shards are equal and
+    contiguous, so rank r's starts at r * local, a head boundary iff
+    ``local`` is a multiple of ``unit``. A shard that falls inside a head
+    (recurrentgemma-2b's and granite-20b's single KV head at model = 2)
+    is gathered over ``model`` where it is used."""
+    return local % unit == 0
 
 
 def shard_tree(tree: Any, spec_tree: Any, mesh, coords: Dict[str, int], device=None):
@@ -226,10 +241,38 @@ def shard_tree(tree: Any, spec_tree: Any, mesh, coords: Dict[str, int], device=N
     return _tree_map(shard, tree, spec_tree)
 
 
-def gather_leaf(t, spec: Spec, comm):
-    """The whole leaf from the ranks' shards of it (no gradient)."""
-    found = sharded_dim(spec, comm.mesh)
-    if found is None:
-        return t
-    dim, axes = found
-    return comm.all_gather(t.detach(), axes, dim)
+def gather_leaf(t, spec: Spec, comm, *, keep: Tuple[str, ...] = (), to_first: bool = False):
+    """The leaf from the ranks' shards of it (no gradient): every split dim
+    all-gathered in turn, but those split over an axis in ``keep`` (the
+    FSDP step gathers over ``data`` and keeps its ``model`` shard). With
+    ``to_first`` the whole leaf goes to rank 0 alone (a gather): it
+    returns None on every other rank."""
+    dims = [(d, axes) for d, axes in sharded_dim(spec, comm.mesh)
+            if not set(axes) & set(keep)]
+    if to_first:
+        return _gather_to_first(t.detach(), spec, dims, comm)
+    for dim, axes in dims:
+        t = comm.all_gather(t.detach(), axes, dim)
+    return t
+
+
+def _gather_to_first(t, spec, dims, comm):
+    """Rank 0 assembles the whole leaf from the shards of its group over
+    the leaf's split axes; a group without rank 0 has nothing to send."""
+    if not dims:
+        return t if comm.rank == 0 else None
+    axes = tuple(a for _, ax in dims for a in ax)
+    _, members = comm._group(axes)
+    if 0 not in members:
+        return None
+    parts = comm.gather(t, axes)
+    if parts is None:
+        return None
+    mesh = comm.mesh
+    shape = list(t.shape)
+    for d, ax in dims:
+        shape[d] *= axis_size(mesh, ax)
+    whole = torch.empty(shape, dtype=t.dtype, device=t.device)
+    for member, part in zip(members, parts):
+        whole[shard_index(spec, tuple(shape), mesh, mesh.coords(member))] = part
+    return whole

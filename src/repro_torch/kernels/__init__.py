@@ -57,6 +57,13 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn, _ in KERNELS}
 
 
+def decode_lse_launches() -> int:
+    """Those of decode_attention's launches that also wrote each row's
+    log-sum-exp (a cache whose sequence is split over ranks)."""
+    return decode_attention_cuda.lse_launches
+
+
 def reset_launch_counts() -> None:
     for _, fn, _ in KERNELS:
         fn.launches = 0
+    decode_attention_cuda.lse_launches = 0

@@ -6,8 +6,10 @@ the sequence axis sized to the card's SMs, combined in one launch through
 the distributed shared memory of a thread-block cluster. The wrapper
 validates its inputs (q may be a strided (B, H, D) view with a contiguous
 last dimension; the caches must be contiguous; any head_dim a block's
-shared memory holds), allocates the (B, H, D) output in q's dtype, launches
-on the current stream and raises if the launch was refused.
+shared memory holds), allocates the (B, H, D) output in q's dtype (and,
+with ``return_lse``, the (B, H) float32 log-sum-exp of each row's scaled
+logits, which the kernel's combine writes beside the output), launches on
+the current stream and raises if the launch was refused.
 ``decode_attention_cuda.launches`` counts calls that launched.
 """
 
@@ -30,7 +32,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
     ll = ctypes.c_longlong
-    lib.decode_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ll, ll,
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll,
                                             ctypes.c_float, p]
     lib.decode_attention_launch.restype = ctypes.c_int
     lib.decode_attention_splits.argtypes = [i, i, i, i, i, i]
@@ -60,7 +62,8 @@ def decode_attention_cuda(
     lengths: torch.Tensor,  # (B,) int32
     *,
     scale: Optional[float] = None,
-) -> torch.Tensor:  # (B, H, D) in q's dtype
+    return_lse: bool = False,
+):  # (B, H, D) in q's dtype, and (B, H) float32 with return_lse
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {device}")
@@ -96,13 +99,15 @@ def decode_attention_cuda(
     if q.numel() == 0 or S == 0:
         raise ValueError(f"decode_attention: empty shapes q {tuple(q.shape)}, S={S}")
     out = torch.empty((B, H, D), dtype=q.dtype, device=device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=device) if return_lse else None
     lib = build.load(SOURCE, _bind)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _check_shape(lib, device, B, H, KVH, S, D, DTYPES[k_cache.dtype])
         rc = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), DTYPES[q.dtype], DTYPES[k_cache.dtype], B, H, KVH, S, D,
+            out.data_ptr(), None if lse is None else lse.data_ptr(), DTYPES[q.dtype],
+            DTYPES[k_cache.dtype], B, H, KVH, S, D,
             q.stride(0), q.stride(1), float(scale), stream,
         )
     if rc != 0:
@@ -111,7 +116,11 @@ def decode_attention_cuda(
             f"{lib.decode_attention_error_string(rc).decode()} ({rc})"
         )
     decode_attention_cuda.launches += 1
+    if return_lse:
+        decode_attention_cuda.lse_launches += 1
+        return out, lse
     return out
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.lse_launches = 0  # those of them that wrote the log-sum-exp

@@ -24,8 +24,12 @@ def decode_attention(
     lengths: torch.Tensor,
     *,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """(B,H,D) query vs (B,KVH,S,D) cache, (B,) valid lengths -> (B,H,D)."""
+    return_lse: bool = False,
+):
+    """(B,H,D) query vs (B,KVH,S,D) cache, (B,) valid lengths -> (B,H,D);
+    with ``return_lse`` also the (B,H) float32 log-sum-exp of each row's
+    scaled logits (-inf, with a zero output, where a row has no valid
+    position)."""
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k_cache, v_cache)
     ):
@@ -33,7 +37,9 @@ def decode_attention(
                            "torch.no_grad() or on tensors that do not require grad")
     kind = q.device.type
     if kind == "cuda":
-        return kernel_cuda.decode_attention_cuda(q, k_cache, v_cache, lengths, scale=scale)
+        return kernel_cuda.decode_attention_cuda(q, k_cache, v_cache, lengths, scale=scale,
+                                                 return_lse=return_lse)
     if kind == "cpu":
-        return ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
+        return ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale,
+                                        return_lse=return_lse)
     raise ValueError(f"decode_attention: unsupported device {q.device}")

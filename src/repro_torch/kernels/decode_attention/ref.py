@@ -3,6 +3,13 @@
 Port of the reference's `decode_attention_ref`: the cache repeated to H
 heads, float32 logits, positions at or beyond ``lengths[b]`` masked with
 -inf, float32 softmax. The output has q's dtype.
+
+With ``return_lse`` it also returns the (B, H) float32 log-sum-exp of each
+row's scaled logits over its valid positions, the statistic that merges
+the partial outputs of a cache whose sequence is split over ranks
+(`repro_torch.models.attention.merge_partials`). A row with no valid
+position then has a zero output and a log-sum-exp of -inf (without it,
+0 / 0: NaN, as in the reference).
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ def decode_attention_ref(
     lengths: torch.Tensor,  # (B,) valid cache lengths
     *,
     scale: Optional[float] = None,
-) -> torch.Tensor:  # (B, H, D)
+    return_lse: bool = False,
+):  # (B, H, D), and (B, H) with return_lse
     B, H, D = q.shape
     KVH, S = k_cache.shape[1], k_cache.shape[2]
     g = H // KVH
@@ -31,7 +39,12 @@ def decode_attention_ref(
     mask = torch.arange(S, device=q.device)[None, None, :] < lengths.to(q.device)[:, None, None]
     logits = logits.masked_fill(~mask, float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
+    if return_lse:
+        m = torch.where(torch.isfinite(m), m, 0.0)  # a row with nothing valid: -inf
     e = torch.exp(logits - m)
-    p = e / e.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhs,bhsd->bhd", p, vx)
-    return out.to(q.dtype)
+    total = e.sum(dim=-1, keepdim=True)
+    p = e / (torch.where(total > 0, total, 1.0) if return_lse else total)
+    out = torch.einsum("bhs,bhsd->bhd", p, vx).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(total))[..., 0]
+    return out

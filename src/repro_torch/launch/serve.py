@@ -14,17 +14,19 @@ the cache bf16 (recurrent states float32), as the reference's ``main`` and
 ``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's default;
 ``main`` sets it).
 
-``--mesh DxM`` with M == 1 spawns D ranks (`repro_torch.distributed.comm`),
-each serving its rows of the requests through the train package's
-`build_prefill_step` / `build_decode_step` (`serve_rules`, parameters
-replicated), and gathers the tokens in request order; rank 0 prints.
-``--dist-backend`` names the transport: ``nccl`` (the default) needs a
-card per rank, ``gloo`` stages each exchange through host memory (so two
-ranks can share one card). M > 1 (tensor parallelism) is a ROADMAP.md
-item.
+``--mesh DxM`` spawns D x M ranks (`repro_torch.distributed.comm`): the
+requests' rows split over the D ``data`` ranks, and the M ``model`` ranks
+that serve the same rows split the weights and the cache by tensor
+parallelism, each holding its shards as `serve_rules` gives them
+(`repro_torch.distributed.tensor_parallel`), through the train package's
+`build_prefill_step` / `build_decode_step`; the greedy token is the
+vocab-parallel argmax, and the tokens are gathered in request order;
+rank 0 prints. ``--dist-backend`` names the transport: ``nccl`` (the
+default) needs a card per rank, ``gloo`` stages each exchange through
+host memory (so several ranks can share one card).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduce 8 \
-      --requests 4 --prompt-len 32 --gen 16 [--mesh 2x1 --dist-backend gloo]
+      --requests 4 --prompt-len 32 --gen 16 [--mesh 2x2 --dist-backend gloo]
 
 Without ``--device cpu`` it runs on the card and raises if there is none.
 The weights are drawn from seed 0 on the CPU whatever the device, so the
@@ -45,7 +47,7 @@ import torch
 from .. import configs, kernels
 from ..device import resolve_device
 from ..distributed import comm as dist_comm
-from ..distributed import sharding
+from ..distributed import sharding, tensor_parallel
 from ..models import LM
 from ..models.layers import tree_map
 from ..train import steps as train_steps
@@ -121,40 +123,61 @@ def serve_batch(
 
     With ``comm`` (a rank of a mesh, the reference's ``mesh``), the rank
     serves its rows of ``prompts`` (split over the batch axes, as
-    ``batch_spec_tree`` shards them) through `build_prefill_step` and
-    `build_decode_step`, as the reference's ``serve_batch`` does, and the
-    outputs are all-gathered in request order. Where the rows do not
-    divide, the reference's batch spec falls back to replication: every
-    rank serves every request on its own, and nothing is gathered.
+    ``batch_spec_tree`` shards them) with its shards of ``params``
+    (`param_shardings` under `serve_rules`: whole where ``model`` is 1)
+    through `build_prefill_step` and `build_decode_step`, as the
+    reference's ``serve_batch`` does, and the outputs are all-gathered in
+    request order. Where the rows do not divide, the reference's batch
+    spec falls back to replication: every rank serves every request, and
+    nothing is gathered. Where ``model`` splits the vocab, the greedy
+    token is the vocab-parallel argmax and the logits kept for the record
+    are all-gathered once per step.
     """
     prompts = np.asarray(prompts)
     s_max = prompts.shape[1] + gen_tokens
     kw = dict(temperature=temperature, seed=seed, timings=timings, return_logits=return_logits)
-    if comm is not None:
-        prefill, info = train_steps.build_prefill_step(lm, comm, s_max=s_max,
-                                                       batch_size=prompts.shape[0])
-        decode, _ = train_steps.build_decode_step(lm, comm, info["rules"])
-        baxes = sharding.batch_axes(comm.mesh, info["rules"])
-        if prompts.shape[0] % comm.axis_size(baxes) == 0:
-            rows = dist_comm.rank_rows(prompts.shape[0], comm, baxes)
-            out = _generate(prefill, decode, params, prompts[rows], gen_tokens, **kw)
-            outs = out if return_logits else (out,)
-            gathered = tuple(
-                comm.all_gather(torch.from_numpy(np.ascontiguousarray(o)), baxes).numpy()
-                for o in outs)
-            return gathered if return_logits else gathered[0]
-    return _generate(lambda p, b: lm.prefill(p, b, s_max=s_max), lm.decode_step, params,
-                     prompts, gen_tokens, **kw)
+    if comm is None:
+        return _generate(lambda p, b: lm.prefill(p, b, s_max=s_max), lm.decode_step, params,
+                         prompts, gen_tokens, **kw)
+    rules = sharding.serve_rules("pod" in comm.mesh.shape)
+    baxes = sharding.batch_axes(comm.mesh, rules)
+    split = prompts.shape[0] % comm.axis_size(baxes) == 0
+    if not split:
+        rules = {**rules, "batch": None}  # replicated rows: every rank serves them all
+    prefill, _ = train_steps.build_prefill_step(lm, comm, rules, s_max=s_max,
+                                                batch_size=prompts.shape[0])
+    step, _ = train_steps.build_decode_step(lm, comm, rules)
+    decode = lambda p, b, c, n: step(p, b, c, n, s_max=s_max)  # noqa: E731
+    with sharding.activation_ctx(comm, rules):
+        tp = tensor_parallel.split(params["embed"], lm.cfg.vocab_size, 0)
+    rows = dist_comm.rank_rows(prompts.shape[0], comm, baxes) if split else slice(None)
+    out = _generate(prefill, decode, params, prompts[rows], gen_tokens, vocab=tp, **kw)
+    if not split:
+        return out
+    outs = out if return_logits else (out,)
+    gathered = tuple(comm.all_gather(torch.from_numpy(np.ascontiguousarray(o)), baxes).numpy()
+                     for o in outs)
+    return gathered if return_logits else gathered[0]
 
 
 def _generate(prefill, decode, params, prompts, gen_tokens, *, temperature, seed, timings,
-              return_logits):
+              return_logits, vocab=None):
     """`serve_batch`'s loop: ``prefill(params, batch)`` and ``decode(params,
-    batch, cache, lengths)``, each returning (logits, cache, lengths)."""
+    batch, cache, lengths)``, each returning (logits, cache, lengths).
+    ``vocab``: the `TensorParallel` whose ranks hold the logits' vocab
+    columns, or None where they are whole."""
     device = params["embed"].device
     generator = None
     if temperature > 0.0:
         generator = torch.Generator(device=device).manual_seed(seed)
+
+    def whole(logits):
+        return logits if vocab is None else vocab.gather(logits, -1)
+
+    def pick(logits):
+        if vocab is not None and temperature <= 0.0:
+            return vocab.argmax(logits).to(torch.int32)
+        return sample(whole(logits), generator, temperature)
 
     def sync():
         if timings is not None and device.type == "cuda":
@@ -163,17 +186,17 @@ def _generate(prefill, decode, params, prompts, gen_tokens, *, temperature, seed
     t0 = time.perf_counter()
     tokens = torch.as_tensor(prompts, dtype=torch.long, device=device)
     logits, cache, lengths = prefill(params, {"tokens": tokens})
-    tok = sample(logits, generator, temperature)
+    tok = pick(logits)
     out = [tok]
-    seen = [logits] if return_logits else []
+    seen = [whole(logits)] if return_logits else []
     sync()
     t1 = time.perf_counter()
     for _ in range(gen_tokens - 1):
         logits, cache, lengths = decode(params, {"tokens": tok[:, None].long()}, cache, lengths)
-        tok = sample(logits, generator, temperature)
+        tok = pick(logits)
         out.append(tok)
         if return_logits:
-            seen.append(logits)
+            seen.append(whole(logits))
     sync()
     if timings is not None:
         timings.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
@@ -186,12 +209,14 @@ def _generate(prefill, decode, params, prompts, gen_tokens, *, temperature, seed
 
 def _serve_rank(comm, args, record: bool):
     """One rank of ``main``'s ``--mesh`` run: the weights from seed 0 drawn
-    on the CPU (every rank the same), its rows served on its device."""
+    on the CPU (every rank the same), its shards of them on its device,
+    its rows served."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = reduce_config(configs.get_config(args.arch), args.reduce)
     lm = LM(cfg)
-    params = tree_map(lambda t: t.to(comm.device),
-                      lm.init(torch.Generator().manual_seed(0), dtype=torch.float32))
+    specs = train_steps.param_shardings(lm, comm.mesh, sharding.serve_rules(False))
+    params = sharding.shard_tree(lm.init(torch.Generator().manual_seed(0), dtype=torch.float32),
+                                 specs, comm.mesh, comm.coords, comm.device)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 size=(args.requests, args.prompt_len))
     timings, logits = {}, None
@@ -233,16 +258,13 @@ def main(argv=None, *, record: Optional[dict] = None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; MODEL must be 1")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL: DATA ranks split the requests, MODEL ranks the weights")
     ap.add_argument("--dist-backend", default="nccl", choices=dist_comm.BACKENDS,
                     help="transport between the ranks of a --mesh run")
     args = ap.parse_args(argv)
 
     mesh = parse_mesh(args.mesh)
-    if mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the model axis (tensor parallelism) is not ported yet "
-            "(ROADMAP.md, module queue); use --mesh Dx1")
     if mesh.size > 1:
         recs = dist_comm.run_ranks(_serve_rank, mesh, args, record is not None,
                                    backend=args.dist_backend, device=args.device)
@@ -250,8 +272,9 @@ def main(argv=None, *, record: Optional[dict] = None):
             record["transport"] = dist_comm.transport_name(args.dist_backend, args.device,
                                                            mesh.size)
             record["ranks"] = [{"timings": r["result"]["timings"], "s": r["result"]["s"],
-                                **{k: r[k] for k in ("launches", "max_memory_allocated",
-                                                     "comm_bytes")}} for r in recs]
+                                **{k: r[k] for k in ("launches", "decode_lse_launches",
+                                                     "max_memory_allocated", "comm_bytes")}}
+                               for r in recs]
             record["logits"] = recs[0]["result"]["logits"]
         return recs[0]["result"]["tokens"]
 

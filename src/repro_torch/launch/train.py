@@ -15,21 +15,22 @@ was already of the final step, `main` waits for it instead of writing
 the same state again (the reference writes it twice). Without ``--device
 cpu`` it runs on the card and raises if there is none.
 
-``--mesh DxM`` with M == 1 spawns D ranks (`repro_torch.distributed.comm`;
-one JAX process drives all its devices, so the launcher starts its ranks
-itself) that run the FSDP-sharded step (`build_train_step` with a
-``comm``): each rank stores its shards of the state, takes its rows of
+``--mesh DxM`` spawns D x M ranks (`repro_torch.distributed.comm`; one
+JAX process drives all its devices, so the launcher starts its ranks
+itself) that run the sharded step (`build_train_step` with a ``comm``:
+FSDP over ``data``, tensor parallelism over ``model``): each rank stores
+its shards of the state, takes its ``data`` slice's rows of
 ``data.batch(step)``, the global batch (the reference's pjit shards the
 global batch; ``batch(step, host_id, n_hosts)`` is another stream), and
-rank 0 prints the reference's lines. Checkpoints hold whole leaves (all
-ranks gather, rank 0 writes), and ``--resume`` gives each rank its shard
-of them, so a run resumes on any mesh, and in the reference.
-``--dist-backend`` names the transport: ``nccl`` (the default) needs a
-card per rank, ``gloo`` stages each exchange through host memory (two
-ranks can share one card). M > 1 (tensor parallelism) is a ROADMAP.md
-item; ``--mesh 1x1`` is the single-device path.
+rank 0 prints the reference's lines. Checkpoints hold whole leaves (the
+shards are gathered to rank 0, which writes), and ``--resume`` gives each
+rank its shard of them, so a run resumes on any mesh, and in the
+reference. ``--dist-backend`` names the transport: ``nccl`` (the
+default) needs a card per rank, ``gloo`` stages each exchange through
+host memory (several ranks can share one card). ``--mesh 1x1`` is the
+single-device path.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --mesh 2x1 \
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh 2x2 \
       --dist-backend gloo --reduce 8 --steps 4 --batch 4 --seq 64
 """
 
@@ -74,7 +75,8 @@ def main(argv=None, *, record: Optional[dict] = None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--data-mode", default="markov")
-    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; MODEL must be 1")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL: FSDP over DATA ranks, tensor parallelism over MODEL")
     ap.add_argument("--dist-backend", default="nccl", choices=dist_comm.BACKENDS,
                     help="transport between the ranks of a --mesh run")
     ap.add_argument("--log-every", type=int, default=10)
@@ -82,10 +84,6 @@ def main(argv=None, *, record: Optional[dict] = None):
     args = ap.parse_args(argv)
 
     mesh = parse_mesh(args.mesh)
-    if mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the model axis (tensor parallelism) is not ported yet "
-            "(ROADMAP.md, module queue); use --mesh Dx1")
     if mesh.size > 1:
         recs = dist_comm.run_ranks(_train_rank, mesh, args, backend=args.dist_backend,
                                    device=args.device)
@@ -93,8 +91,9 @@ def main(argv=None, *, record: Optional[dict] = None):
             record.update(recs[0]["result"]["record"])
             record["transport"] = dist_comm.transport_name(args.dist_backend, args.device,
                                                            mesh.size)
-            record["ranks"] = [{k: r[k] for k in ("s", "launches", "max_memory_allocated",
-                                                  "comm_bytes")} for r in recs]
+            record["ranks"] = [{k: r[k] for k in ("s", "launches", "decode_lse_launches",
+                                                  "max_memory_allocated", "comm_bytes")}
+                               for r in recs]
         return recs[0]["result"]["losses"]
 
     device = resolve_device(args.device)
@@ -203,7 +202,7 @@ def _train_rank(comm, args):
     rec = {"n_params": n_params, "steps": []}
 
     def save(step, **kw):
-        host = gather_state(state, shardings, comm)  # every rank takes part
+        host = gather_state(state, shardings, comm)  # every rank takes part; rank 0's
         if lead:
             ckpt.save(step, host, **kw)
 

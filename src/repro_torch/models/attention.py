@@ -21,6 +21,14 @@ computes it with einsums on every backend: q viewed as (B, KVH, G, S, D),
 K/V kept at KVH heads. Neither attention kernel takes it (flash takes one
 S for queries and keys; here it is S x n_img). In decode the cross layer's
 one query goes through `decode_attention` against the image cache.
+
+A decode cache whose sequence is split over the mesh's ``model`` axis
+(`sharding.serve_rules` where the KV heads do not divide it:
+recurrentgemma-2b's ring and granite-20b's causal cache at model = 2) is
+never gathered: each rank attends with all query heads over its own
+positions, and `merge_shards` combines the ranks' partial outputs by the
+decode kernel's log-sum-exp (the reference's "psum over per-shard
+partial softmax stats").
 """
 
 from __future__ import annotations
@@ -117,5 +125,27 @@ def decode_attention(
     lengths: torch.Tensor,  # (B,)
     *,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    return decode_ops.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+    return_lse: bool = False,
+):
+    return decode_ops.decode_attention(q, k_cache, v_cache, lengths, scale=scale,
+                                       return_lse=return_lse)
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, reduce_max, reduce_sum) -> torch.Tensor:
+    """Softmax-weighted merge of partial attention outputs ``o`` (.., H, D)
+    over disjoint position sets, each with the log-sum-exp ``lse`` (.., H)
+    of its logits (-inf for an empty set, whose output is zero):
+    sum_r exp(lse_r - M) o_r / sum_r exp(lse_r - M), M = max_r lse_r.
+    ``reduce_max`` / ``reduce_sum`` take the max and the sum over the sets
+    (all-reduces over ranks, or reductions of a stacked dim)."""
+    top = reduce_max(lse)
+    w = torch.exp(lse - top)
+    num = reduce_sum(o.float() * w[..., None])
+    return (num / reduce_sum(w)[..., None]).to(o.dtype)
+
+
+def merge_shards(o: torch.Tensor, lse: torch.Tensor, comm, axis: str = "model") -> torch.Tensor:
+    """`merge_partials` of the ranks' outputs along ``axis``: one max and
+    two sums all-reduced."""
+    return merge_partials(o, lse, lambda t: comm.all_reduce(t, axis, op="max"),
+                          lambda t: comm.all_reduce(t, axis))

@@ -20,17 +20,30 @@ ones; the cross cache is only read. The returned dict holds the same
 tensors. The reference's simplifications of the upstream models (static
 token-shift ratios, the decay's LoRA only; diagonal RG-LRU gates) are kept
 as they are.
+
+On a mesh whose ``model`` axis is larger than 1
+(`repro_torch.distributed.tensor_parallel.current`), each function takes
+this rank's shards of its parameters and caches and computes Megatron-
+style, with the same names: column-parallel ``wq/wk/wv``, ``w1/w3``,
+``wx/wgate``, ``wc1`` and RWKV-6's head projections, row-parallel
+``wo``, ``w2``, ``wc2``; the MoE's experts split over ``model`` (the
+dispatch replicated, ``out_buf`` all-gathered along experts, the combine
+local); the RG-LRU and RWKV-6 kernels on the local channels and heads.
+Local counts are read from the shards' shapes. A decode cache whose
+sequence is split over ``model`` (`SeqShard`) is merged across ranks by
+the decode kernel's log-sum-exp, never gathered.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..distributed import sharding
+from ..distributed import sharding, tensor_parallel
 from ..kernels.rglru_scan import ops as rglru_ops
 from ..kernels.rwkv6_scan import ops as rwkv_ops
 from . import attention
@@ -196,10 +209,141 @@ def _qkv(cfg, p, x, positions, *, rope_on=True):
     return q, k, v
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """Where a rank's K/V cache sits in the whole one when its KV heads do
+    not split over ``model``: positions [offset, offset + local) of
+    ``whole`` (offset 0 and local == whole where the cache is replicated)."""
+
+    offset: int
+    whole: int
+
+
+def _kv_of_heads(h0: int, nq: int, group: int, kv0: int):
+    """The K/V heads (of those computed, from head kv0 on) that query heads
+    h0 .. h0 + nq - 1 read, head h reading h // group: a slice where they
+    form equal groups (the attention kernels' layout), else one per query
+    head."""
+    first, last = h0 // group, (h0 + nq - 1) // group
+    n = last - first + 1
+    if nq % n == 0 and all((h0 + i) // group - first == i // (nq // n) for i in range(nq)):
+        return slice(first - kv0, last - kv0 + 1)
+    return [(h0 + i) // group - kv0 for i in range(nq)]
+
+
+def _attn_tp(cfg, p):
+    """The ``model`` axis where it splits the attention's projections."""
+    return (tensor_parallel.split(p["wo"], cfg.q_dim, 0)
+            or tensor_parallel.split(p["wk"], cfg.kv_dim))
+
+
+def _tp_weights(tp, cfg, p, kv: bool = True):
+    """(wq, first q column, wk, first kv column, wv): each this rank's shard
+    where it holds whole heads, else gathered over ``model``."""
+    if p["wo"].shape[0] == cfg.q_dim:
+        raise NotImplementedError(
+            f"{cfg.name}: q_dim {cfg.q_dim} does not split over model = {tp.size}")
+    hd = cfg.head_dim
+    wq, c0 = tp.whole_heads(p["wq"], cfg.q_dim, hd)
+    if not kv:
+        return wq, c0, None, 0, None
+    wk, k0 = tp.whole_heads(p["wk"], cfg.kv_dim, hd)
+    wv, _ = tp.whole_heads(p["wv"], cfg.kv_dim, hd)
+    return wq, c0, wk, k0, wv
+
+
+def _attn_seq_tp(tp, cfg, p, x, positions, kind, img):
+    """`attn_seq` on this rank's query heads; K/V as the cache holds them
+    (its KV heads where they split, else all)."""
+    hd, eps = cfg.head_dim, cfg.norm_eps
+    wq, c0, wk, k0, wv = _tp_weights(tp, cfg, p)
+    x = tp.enter(x)
+    src = img if kind == "cross" else x
+    q = _split_heads(x @ wq, wq.shape[-1] // hd, hd)
+    k = _split_heads(src @ wk, wk.shape[-1] // hd, hd)
+    v = _split_heads(src @ wv, wv.shape[-1] // hd, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, tp.enter(p["q_norm"]), eps)
+        if kind != "cross":
+            k = rms_norm(k, tp.enter(p["k_norm"]), eps)
+    if kind != "cross":
+        q = rope(q, positions[:, None, :], cfg.rope_theta)
+        k = rope(k, positions[:, None, :], cfg.rope_theta)
+    sel = _kv_of_heads(c0 // hd, q.shape[1], cfg.n_heads // cfg.n_kv_heads, k0 // hd)
+    ks, vs = k[:, sel], v[:, sel]
+    if kind == "cross":
+        o = attention.cross_attention(q, ks, vs)
+    elif kind == "local_attn":
+        o = attention.local_attention(q, ks, vs, cfg.local_window)
+    else:
+        o = attention.causal_attention(q, ks, vs)
+    o = _merge_heads(o)
+    rows = p["wo"].shape[0]
+    if o.shape[-1] != rows:  # every head computed: this rank's rows of wo
+        o = tp.own(o, rows)
+    out = tp.row(o, p["wo"])
+    return (torch.tanh(p["gate"]) * out if kind == "cross" else out), (k, v)
+
+
+def _attn_decode_tp(tp, cfg, p, x, positions, kind, cache, lengths, seq: Optional[SeqShard]):
+    """`attn_decode` on this rank's shards. A cache split by KV heads pairs
+    with this rank's query heads; otherwise (``seq``) the rank attends with
+    every query head over its positions and the ranks' outputs merge by
+    their log-sum-exp where the sequence is split."""
+    B, hd, eps = x.shape[0], cfg.head_dim, cfg.norm_eps
+    wq, c0, wk, k0, wv = _tp_weights(tp, cfg, p, kv=kind != "cross")
+    q = _split_heads(x @ wq, wq.shape[-1] // hd, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], eps)
+    local, whole = cache["k"].shape[2], (seq.whole if seq else cache["k"].shape[2])
+    off = seq.offset if seq else 0
+    if kind == "cross":
+        valid = torch.full((B,), whole, dtype=torch.int32, device=x.device)
+    else:
+        k = _split_heads(x @ wk, wk.shape[-1] // hd, hd)
+        v = _split_heads(x @ wv, wv.shape[-1] // hd, hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"], eps)
+        q = rope(q, positions[:, None, :], cfg.rope_theta)
+        k = rope(k, positions[:, None, :], cfg.rope_theta)
+        if kind == "local_attn":
+            slot = lengths % whole
+            valid = torch.clamp(lengths + 1, max=whole).to(torch.int32)
+        else:
+            slot, valid = lengths, (lengths + 1).to(torch.int32)
+        # The new K/V go to the rank whose positions hold the slot alone.
+        mine = (slot >= off) & (slot < off + local)
+        at = torch.clamp(slot - off, 0, local - 1).long()
+        bidx = torch.arange(B, device=x.device)
+        for name, t in (("k", k), ("v", v)):
+            old = cache[name][bidx, :, at]
+            cache[name][bidx, :, at] = torch.where(mine[:, None, None],
+                                                   t[:, :, 0].to(old.dtype), old)
+    q = q[:, :, 0]
+    if cache["k"].shape[1] < cfg.n_kv_heads:  # split by KV heads: this rank's
+        o = attention.decode_attention(q, cache["k"], cache["v"], valid).reshape(B, 1, -1)
+    else:
+        if q.shape[1] < cfg.n_heads:
+            q = tp.comm.all_gather(q.contiguous(), tensor_parallel.AXIS, 1)
+        valid = torch.clamp(valid - off, 0, local).to(torch.int32)
+        if local < whole:
+            o, lse = attention.decode_attention(q, cache["k"], cache["v"], valid,
+                                                return_lse=True)
+            o = attention.merge_shards(o, lse, tp.comm)
+        else:
+            o = attention.decode_attention(q, cache["k"], cache["v"], valid)
+        o = tp.own(o.reshape(B, 1, -1), p["wo"].shape[0])
+    out = tp.row(o, p["wo"])
+    return (torch.tanh(p["gate"]) * out if kind == "cross" else out), cache
+
+
 def attn_seq(cfg, p, x, positions, kind, img=None):
     """Full-sequence attention sublayer. Returns (out, (k, v)); for cross,
     K/V are the image tokens' (no rope on either side, q_norm only) and the
     output is scaled by tanh(gate)."""
+    tp = _attn_tp(cfg, p)
+    if tp is not None:
+        return _attn_seq_tp(tp, cfg, p, x, positions, kind, img)
     if kind == "cross":
         q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
         if cfg.qk_norm:
@@ -216,15 +360,19 @@ def attn_seq(cfg, p, x, positions, kind, img=None):
     return _merge_heads(o) @ p["wo"], (k, v)
 
 
-def attn_decode(cfg, p, x, positions, kind, cache, lengths):
+def attn_decode(cfg, p, x, positions, kind, cache, lengths, seq: Optional[SeqShard] = None):
     """One-token attention sublayer against the cache.
 
     The new K/V go into the cache IN PLACE at slot ``lengths[b]`` (dense,
     moe) or ``lengths[b] % w`` (local_attn's ring of w slots, valid
     ``min(lengths[b] + 1, w)``); the returned dict holds the same tensors.
     A cross layer's query attends to all of its image cache, which it
-    leaves as it is.
+    leaves as it is. ``seq`` places a rank's cache in the whole one where
+    ``model`` does not split its KV heads.
     """
+    tp = _attn_tp(cfg, p)
+    if tp is not None:
+        return _attn_decode_tp(tp, cfg, p, x, positions, kind, cache, lengths, seq)
     B = x.shape[0]
     if kind == "cross":
         q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)[:, :, 0]
@@ -265,11 +413,16 @@ def _ring(k: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def ffn_apply(cfg, p, x):
+    """The FFN; ``w1/w3`` column-parallel and ``w2`` row-parallel where
+    ``model`` splits d_ff."""
     act = activation_fn(cfg.activation)
+    tp = tensor_parallel.split(p["w1"], cfg.d_ff)
+    if tp is not None:
+        x = tp.enter(x)
     h = act(x @ p["w1"])
     if cfg.activation == "swiglu":
         h = h * (x @ p["w3"])
-    return h @ p["w2"]
+    return tp.row(h, p["w2"]) if tp is not None else h @ p["w2"]
 
 
 MOE_GROUPS = 64  # dispatch groups (the reference aligns them to the data axis)
@@ -370,8 +523,11 @@ def moe_apply(cfg, p, x):
     The tokens of the global batch split into G = the largest divisor of
     their count up to ``MOE_GROUPS`` groups; each expert takes at most cap
     = cf * Tg * K / E (+ 1) pairs of a group (Switch-style), the rest are
-    dropped. On one device the global batch is ``x``. On a rank of a mesh
-    (under `activation_ctx`) ``x`` holds this rank's rows of it, and the
+    dropped. Where ``model`` splits the experts, the dispatch runs on every
+    rank of it, each rank runs its experts on its slice of the buffer's
+    expert dim, and the outputs are all-gathered along experts; the
+    combine stays local. On one device the global batch is ``x``. On a
+    rank of a mesh (under `activation_ctx`) ``x`` holds this rank's rows of it, and the
     groups stay the global batch's, as the reference's condition picks:
     where the batch axes' size d divides G, rank r's T / d tokens are
     exactly groups [r * G / d, (r + 1) * G / d) and it dispatches them
@@ -395,7 +551,14 @@ def moe_apply(cfg, p, x):
     else:
         xt = x.reshape(G // bsize, Tg, D)
     buf, meta = _moe_dispatch(cfg, p["router"], xt)
-    out = _moe_combine(_moe_experts(cfg, p, buf), meta, tuple(xt.shape), xt.dtype)
+    tp = tensor_parallel.split(p["we1"], cfg.n_experts, 0)
+    n_local = p["we1"].shape[0]
+    if tp is not None:
+        mine = tp.enter(buf).narrow(1, tp.index * n_local, n_local)
+        out_buf = tp.gather(_moe_experts(cfg, p, mine), 1)
+    else:
+        out_buf = _moe_experts(cfg, p, buf)
+    out = _moe_combine(out_buf, meta, tuple(xt.shape), xt.dtype)
     out = out.reshape(-1, D)
     if straddle:
         i = comm.axis_index(baxes)
@@ -428,9 +591,18 @@ def _conv(p, hist, n: int, width: int):
     return sum(hist[:, i : i + n] * p["conv"][i] for i in range(width))
 
 
+def _rec_tp(cfg, p):
+    """The ``model`` axis where it splits the rnn channels, else None."""
+    return tensor_parallel.split(p["wx"], cfg.rnn_width or cfg.d_model)
+
+
 def rec_seq(cfg, p, x):
-    """(B, S, D) -> (B, S, D) + cache entry {h, conv}."""
+    """(B, S, D) -> (B, S, D) + cache entry {h, conv} (this rank's rnn
+    channels where ``model`` splits them)."""
     B, S, _ = x.shape
+    tp = _rec_tp(cfg, p)
+    if tp is not None:
+        x = tp.enter(x)
     gate = _gelu(x @ p["wgate"])  # (B, S, R)
     xr = x @ p["wx"]  # (B, S, R)
     CW = cfg.conv_width
@@ -438,20 +610,23 @@ def rec_seq(cfg, p, x):
     xp = torch.cat([pad, xr], dim=1)  # causal: left padding
     log_a, gx = _rglru_gates(p, _conv(p, xp, S, CW))
     h, h_final = rglru_ops.rglru_scan(log_a, gx, None)
-    out = (gate * h.to(gate.dtype)) @ p["wo"]
+    y = gate * h.to(gate.dtype)
+    out = tp.row(y, p["wo"]) if tp is not None else y @ p["wo"]
     return out, {"h": h_final, "conv": xp[:, -(CW - 1):]}
 
 
 def rec_decode(cfg, p, x, cache):
     """One step of the recurrence, inline as in the reference (no kernel);
     ``h`` and ``conv`` are written into the cache in place."""
+    tp = _rec_tp(cfg, p)
     gate = _gelu(x @ p["wgate"])  # (B, 1, R)
     xr = x @ p["wx"]  # (B, 1, R)
     CW = cfg.conv_width
     hist = torch.cat([cache["conv"].to(xr.dtype), xr], dim=1)  # (B, CW, R)
     log_a, gx = _rglru_gates(p, _conv(p, hist, 1, CW)[:, 0])
     h = torch.exp(log_a) * cache["h"] + torch.sqrt(-torch.expm1(2.0 * log_a)) * gx
-    out = (gate[:, 0] * h.to(gate.dtype)) @ p["wo"]
+    y = gate[:, 0] * h.to(gate.dtype)
+    out = tp.row(y, p["wo"]) if tp is not None else y @ p["wo"]
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:])
     return out[:, None], cache
@@ -487,11 +662,49 @@ def _group_norm(x, scale, eps, n_groups):
     return (xg.reshape(B, S, D) * (1.0 + scale.float())).to(x.dtype)
 
 
+def _rwkv_time_mix_tp(tp, cfg, p, x, last, s0, state_out):
+    """`rwkv_time_mix` on this rank's heads: the projections, the decay's
+    ``wB`` and ``w0``, ``u``, the scan and the group norm on them, ``wo``
+    row-parallel; where the shards fall inside heads, the split leaves are
+    gathered and every head computed (the state then whole)."""
+    B, S, D = x.shape
+    N = cfg.rwkv_head_dim
+    xr, xk, xv, xg, xw = _rwkv_mix(p, x, _shift(x, last))
+    cols = p["wr"].shape[-1]
+    split = sharding.split_on_heads(cols, N)
+    if split:
+        q = {k: p[k] for k in ("wr", "wk_", "wv_", "wg", "wB", "w0", "ln_x", "u")}
+    else:
+        q = {k: tp.gather(p[k], -1, grad="sum") for k in ("wr", "wk_", "wv_", "wg", "wB",
+                                                            "w0", "ln_x")}
+        q["u"] = tp.enter(p["u"])
+    H = q["wr"].shape[-1] // N
+
+    def heads(t):
+        return t.reshape(B, S, H, N).transpose(1, 2)
+
+    r = heads(tp.column(xr, q["wr"]))
+    k = heads(tp.column(xk, q["wk_"]))
+    v = heads(tp.column(xv, q["wv_"]))
+    g = F.silu(tp.column(xg, q["wg"]))
+    lora = torch.tanh(xw.float() @ p["wA"].float())
+    w = heads(torch.exp(-torch.exp(q["w0"].float() + tp.column(lora, q["wB"].float()))))
+    o, s_final = rwkv_ops.rwkv6_scan(r, k, v, w, q["u"], s0, state_out=state_out)
+    o = _group_norm(o.transpose(1, 2).reshape(B, S, H * N), q["ln_x"], RWKV_GN_EPS, H)
+    y = o * g
+    if not split:
+        y = tp.own(y, cols)
+    return tp.row(y, p["wo"]), s_final
+
+
 def rwkv_time_mix(cfg, p, x, last=None, s0=None, state_out=None):
     """Time mix over (B, S, D) from shift ``last`` and state ``s0`` (zeros
     when None). Returns (out, final state); with ``state_out`` the final
     state is written there (decode passes its cache's state as both)."""
     B, S, D = x.shape
+    tp = tensor_parallel.split(p["wr"], D)
+    if tp is not None:
+        return _rwkv_time_mix_tp(tp, cfg, p, x, last, s0, state_out)
     H, N = cfg.n_heads, cfg.rwkv_head_dim
     xr, xk, xv, xg, xw = _rwkv_mix(p, x, _shift(x, last))
 
@@ -507,12 +720,21 @@ def rwkv_time_mix(cfg, p, x, last=None, s0=None, state_out=None):
 
 
 def rwkv_channel_mix(cfg, p, x, last=None):
+    """Channel mix; where ``model`` splits them, ``wc1`` column-parallel,
+    ``wc2`` row-parallel, and the receptance's columns (``wcr``)
+    all-gathered before they gate the sum."""
     xs = _shift(x, last)
     mu = p["mu_c"]
     xk = x + (xs - x) * torch.sigmoid(mu[0])
     xr = x + (xs - x) * torch.sigmoid(mu[1])
-    kk = torch.square(torch.relu(xk @ p["wc1"]))
-    return torch.sigmoid(xr @ p["wcr"]) * (kk @ p["wc2"])
+    tp = tensor_parallel.split(p["wc1"], cfg.d_ff)
+    if tp is not None:
+        kv = tp.row(torch.square(torch.relu(tp.column(xk, p["wc1"]))), p["wc2"])
+    else:
+        kv = torch.square(torch.relu(xk @ p["wc1"])) @ p["wc2"]
+    tp = tensor_parallel.split(p["wcr"], x.shape[-1])
+    r = tp.gather(tp.column(xr, p["wcr"]), -1) if tp is not None else xr @ p["wcr"]
+    return torch.sigmoid(r) * kv
 
 
 # --------------------------------------------------------------------------
@@ -555,8 +777,10 @@ def apply_block_seq(kind, cfg, p, x, positions, img=None):
     return x, {"k": k, "v": v}
 
 
-def apply_block_decode(kind, cfg, p, x, positions, cache, lengths):
-    """One-token block (x: (B, 1, D)). Returns (y, cache updated in place)."""
+def apply_block_decode(kind, cfg, p, x, positions, cache, lengths,
+                       seq: Optional[SeqShard] = None):
+    """One-token block (x: (B, 1, D)). Returns (y, cache updated in place);
+    ``seq``: see `attn_decode`."""
     if kind == "rec":
         xn = rms_norm(x, p["norm_mix"], cfg.norm_eps)
         a, cache = rec_decode(cfg, p["rec"], xn, cache)
@@ -577,7 +801,7 @@ def apply_block_decode(kind, cfg, p, x, positions, cache, lengths):
     if kind not in ("dense", "local_attn", "cross", "moe"):
         raise ValueError(kind)
     xn = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    a, cache = attn_decode(cfg, p["attn"], xn, positions, kind, cache, lengths)
+    a, cache = attn_decode(cfg, p["attn"], xn, positions, kind, cache, lengths, seq)
     x = x + a
     xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
     return x + _mlp(kind, cfg, p, xn), cache

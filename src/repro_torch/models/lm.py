@@ -41,6 +41,17 @@ counterpart: a rank computes on its own rows. Under
 ``loss`` divides the rank's masked CE sum by the count over the global
 batch (all-reduced over the batch axes), so the ranks' losses add up to
 the reference's mean over the global batch, whatever each shard's mask.
+
+Where the mesh's ``model`` axis is larger than 1 (tensor parallelism,
+`repro_torch.distributed.tensor_parallel`), a rank holds its shards of
+the parameters and caches as `spec_for` gives them: the embedding lookup
+is vocab-parallel, the logits that ``forward``, ``prefill`` and
+``decode_step`` return are this rank's vocab columns
+(`tensor_parallel.vocab_whole` gathers them), ``loss`` takes the
+vocab-parallel cross-entropy, and ``init_cache`` allocates this rank's
+shard of the cache (the sequence of a K/V cache split over ``model``
+where its KV heads are not: `blocks.SeqShard`; ``decode_step`` then takes
+``s_max`` to place it).
 """
 
 from __future__ import annotations
@@ -53,7 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..distributed import sharding
+from ..distributed import sharding, tensor_parallel
 from . import blocks
 from .layers import Param, init_params, rms_norm, stack_specs, tree_map
 
@@ -90,10 +101,19 @@ class LM:
     def _embed(self, params, batch):
         if self.cfg.embed_inputs:
             return batch["embeds"]  # (B, S, D) frontend stub
-        return params["embed"][batch["tokens"]]
+        table = params["embed"]
+        tp = tensor_parallel.split(table, self.cfg.vocab_size, 0)
+        if tp is not None:
+            return tp.lookup(table, batch["tokens"])
+        return table[batch["tokens"]]
 
     def _logits(self, params, x):
+        """Float32 logits: this rank's vocab columns where ``model`` splits
+        the head."""
         head = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        tp = tensor_parallel.split(head, self.cfg.vocab_size)
+        if tp is not None:
+            return tp.column(x, head).float()
         return (x @ head).float()
 
     def _layers(self, params):
@@ -164,10 +184,14 @@ class LM:
 
         def ce_chunk(h_c, tgt_c, m_c):
             logits = self._logits(params, h_c)  # (B, C, V) float32
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, tgt_c[..., None])[..., 0]
+            tp = tensor_parallel.split(logits, self.cfg.vocab_size)
+            if tp is not None:
+                per = tp.cross_entropy(logits, tgt_c)  # vocab-parallel
+            else:
+                logz = torch.logsumexp(logits, dim=-1)
+                per = logz - logits.gather(-1, tgt_c[..., None])[..., 0]
             m = m_c.float()
-            return ((logz - gold) * m).sum(), m.sum()
+            return (per * m).sum(), m.sum()
 
         chunk = min(self.LOSS_CHUNK, S)
         if S % chunk:
@@ -200,28 +224,62 @@ class LM:
             dt = dtype if (dtype is not None and dt == torch.bfloat16) else dt
             return torch.zeros(shape, dtype=dt, device=device)
 
-        return self._cache_tree(batch, s_max, zeros)
+        return self._cache_tree(batch, s_max, zeros, local=True)
 
     def cache_spec_tree(self, batch: int, s_max: int):
-        """Meta tensors shaped as `init_cache`'s (nothing is allocated)."""
+        """Meta tensors shaped as `init_cache`'s on one device (nothing is
+        allocated)."""
         return self._cache_tree(batch, s_max,
                                 lambda shape, dt: torch.empty(shape, dtype=dt, device="meta"))
 
-    def _cache_tree(self, batch: int, s_max: int, make):
-        """The cache's structure, each entry ``make(shape, dtype)``."""
+    def _cache_tree(self, batch: int, s_max: int, make, local: bool = False):
+        """The cache's structure, each entry ``make(shape, dtype)``; with
+        ``local`` and a ``model`` axis, this rank's shard of each entry
+        (its rows of ``batch`` being already this rank's)."""
         cfg = self.cfg
         cache: Dict[str, Any] = {"blocks": {}}
         for i, kind in enumerate(cfg.pattern):
             spec = blocks.cache_spec(kind, cfg, batch, s_max)
             cache["blocks"][f"pos{i}_{kind}"] = {
-                k: make((cfg.n_superblocks,) + shape, dt) for k, (shape, dt) in spec.items()
+                k: ((cfg.n_superblocks,) + shape, dt) for k, (shape, dt) in spec.items()
             }
         for j, kind in enumerate(cfg.remainder):
             spec = blocks.cache_spec(kind, cfg, batch, s_max)
-            cache[f"rem{j}_{kind}"] = {k: make(shape, dt) for k, (shape, dt) in spec.items()}
-        return cache
+            cache[f"rem{j}_{kind}"] = dict(spec)
+        if local and tensor_parallel.current() is not None:
+            comm, rules = sharding.current()
+            rules = {**rules, "batch": None}  # the rows are this rank's already
+            axes = sharding.cache_axes_tree(
+                tree_map(lambda sd: torch.empty(sd[0], device="meta"), cache))
 
-    def decode_step(self, params, batch, cache, lengths):
+            def shard(sd, ax):
+                spec = sharding.spec_for(tuple(ax), sd[0], comm.mesh, rules)
+                ix = sharding.shard_index(spec, sd[0], comm.mesh, comm.coords)
+                return tuple(i.stop - i.start for i in ix), sd[1]
+
+            cache = tree_map(shard, cache, axes)
+        return tree_map(lambda sd: make(*sd), cache)
+
+    def _kv_seq(self, kind: str, shape, s_max: Optional[int]) -> Optional[blocks.SeqShard]:
+        """Where a rank's K/V cache entry of ``shape`` (.., KVH, S, Dh) sits
+        in the whole one: None off a ``model`` axis or where it splits the
+        KV heads. The whole length is the image count (cross), else from
+        ``s_max``: a shard's own length does not tell a replicated cache
+        from one of ``model`` shards."""
+        tp = tensor_parallel.current()
+        if tp is None or shape[-3] < self.cfg.n_kv_heads:
+            return None
+        if kind == "cross":
+            whole = self.cfg.n_image_tokens
+        elif s_max is None:
+            raise ValueError(f"a {kind} cache whose KV heads do not split over model = "
+                             f"{tp.size}: pass s_max to place its shard")
+        else:
+            whole = min(self.cfg.local_window, s_max) if kind == "local_attn" else s_max
+        local = shape[-2]
+        return blocks.SeqShard(tp.index * local if local < whole else 0, whole)
+
+    def decode_step(self, params, batch, cache, lengths, s_max: Optional[int] = None):
         """One new token for every sequence in the batch.
 
         batch: {"tokens": (B, 1)} or {"embeds": (B, 1, D)}; cross layers read
@@ -229,25 +287,40 @@ class LM:
         lengths + 1);
         every block writes its cache entries in place, so the blocks'
         returned dicts are the cache's own tensors and are not read.
+        ``s_max`` (the cache's length, as given to ``prefill``) places a
+        rank's shard of a cache whose KV heads do not split over ``model``
+        (`_kv_seq`); it is read nowhere else.
         """
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = lengths[:, None]  # (B, 1)
+        seqs = {key: self._kv_seq(key.split("_", 1)[1], c["k"].shape, s_max)
+                for key, c in self._cache_entries(cache) if "k" in c}
         for l, layer_p in enumerate(self._layers(params)):
             for i, kind in enumerate(cfg.pattern):
                 key = f"pos{i}_{kind}"
                 layer_c = {name: t[l] for name, t in cache["blocks"][key].items()}
                 x, _ = blocks.apply_block_decode(
-                    kind, cfg, layer_p[key], x, positions, layer_c, lengths
+                    kind, cfg, layer_p[key], x, positions, layer_c, lengths, seqs.get(key)
                 )
         for j, kind in enumerate(cfg.remainder):
             key = f"rem{j}_{kind}"
             x, _ = blocks.apply_block_decode(
-                kind, cfg, params[key], x, positions, cache[key], lengths
+                kind, cfg, params[key], x, positions, cache[key], lengths, seqs.get(key)
             )
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x)[:, 0]
         return logits, cache, lengths + 1
+
+    def _put(self, buf, got, kind: str, name: str, s_max: int) -> None:
+        """`_place` a prefill entry, at its shard's positions for K/V."""
+        _place(buf, got, self._kv_seq(kind, buf.shape, s_max) if name in ("k", "v") else None)
+
+    def _cache_entries(self, cache):
+        """(key, {name: tensor}) of every pattern position and remainder layer."""
+        yield from cache["blocks"].items()
+        for j, kind in enumerate(self.cfg.remainder):
+            yield f"rem{j}_{kind}", cache[f"rem{j}_{kind}"]
 
     def prefill(self, params, batch, s_max: int, cache_dtype: Optional[torch.dtype] = None):
         """Run the prompt through the model, building a decode cache.
@@ -267,22 +340,27 @@ class LM:
                 key = f"pos{i}_{kind}"
                 x, got = blocks.apply_block_seq(kind, cfg, layer_p[key], x, positions, img)
                 for name, t in got.items():
-                    _place(cache["blocks"][key][name][l], t)
+                    self._put(cache["blocks"][key][name][l], t, kind, name, s_max)
         for j, kind in enumerate(cfg.remainder):
             key = f"rem{j}_{kind}"
             x, got = blocks.apply_block_seq(kind, cfg, params[key], x, positions, img)
             for name, t in got.items():
-                _place(cache[key][name], t)
+                self._put(cache[key][name], t, kind, name, s_max)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x)[:, 0]
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
         return logits, cache, lengths
 
 
-def _place(buf: torch.Tensor, got: torch.Tensor) -> torch.Tensor:
+def _place(buf: torch.Tensor, got: torch.Tensor,
+           seq: Optional[blocks.SeqShard] = None) -> torch.Tensor:
     """Write a prefill cache entry into the preallocated decode buffer, in
     place and cast to the buffer's dtype: K/V (.., KVH, S, Dh) into
     (.., KVH, S_max, Dh) at offset 0; an entry of the buffer's own shape
-    (a recurrent state, a full local ring, the image K/V) over all of it."""
+    (a recurrent state, a full local ring, the image K/V) over all of it.
+    A rank's shard of a sequence-split cache (``seq``) takes the positions
+    it holds."""
+    if seq is not None:
+        got = got[..., seq.offset:seq.offset + buf.shape[-2], :]
     buf[tuple(slice(0, n) for n in got.shape)].copy_(got)
     return buf

@@ -10,29 +10,35 @@ gradients and losses, and divides both by ``grad_accum``, as the
 reference's scan over microbatches does.
 
 On a mesh (``comm``: the rank's `repro_torch.distributed.comm.Comm`, the
-counterpart of the reference's ``mesh``), meshes whose ``model`` axis is
-1 (the ``model`` axis is a ROADMAP.md item):
+counterpart of the reference's ``mesh``):
 
 - storage: each rank holds only its shard of params, mu and nu, as
   `spec_for` under `train_rules` gives it (FSDP: the embed dim over
-  ``data``); `param_shardings` / `train_state_shardings` give the specs
-  without allocating anything;
-- compute: the step all-gathers every leaf over ``data``, computes the
-  loss and gradients of this rank's rows of the global batch under
-  `activation_ctx` (so `LM.loss` divides by the global count and MoE
-  groups are the global batch's), and reduce-scatters the float32
-  gradients back to shards (all-reducing over batch axes a leaf is not
-  sharded on, e.g. ``pod``);
-- optimizer: the global norm from the shards' sums of squares,
-  all-reduced; AdamW elementwise on the shards.
+  ``data``; tensor parallelism: heads, kv heads, mlp, vocab, experts and
+  rnn over ``model``); `param_shardings` / `train_state_shardings` give
+  the specs without allocating anything;
+- compute: the step all-gathers every leaf over ``data`` only and keeps
+  its ``model`` shard, computes the loss and gradients of this rank's
+  rows of the global batch under `activation_ctx` (so `LM.loss` divides
+  by the global count, MoE groups are the global batch's, and the blocks
+  compute on their ``model`` shards,
+  `repro_torch.distributed.tensor_parallel`), and reduce-scatters the
+  float32 gradients over ``data`` back to shards (all-reducing over batch
+  axes a leaf is not sharded on, e.g. ``pod``). A leaf replicated over
+  ``model`` gets no sync there: its gradient is the same on every rank
+  of the axis (the blocks sum the partial ones of such leaves that meet
+  model-local activations);
+- optimizer: the global norm from the shards' sums of squares, each
+  all-reduced over the axes its leaf is split on; AdamW elementwise on
+  the shards.
 
 The step takes the global batch, as the reference's jitted step does, and
 slices this rank's rows (for ``grad_accum``: of each microbatch).
 
 `build_decode_step` / `build_prefill_step` run `LM.decode_step` /
-`LM.prefill` on this rank's rows under `serve_rules` (params replicated
-with ``model == 1``); `repro_torch.launch.serve.serve_batch` serves a
-mesh rank through them, as the reference's does.
+`LM.prefill` on this rank's rows and ``model`` shards under
+`serve_rules`; `repro_torch.launch.serve.serve_batch` serves a mesh rank
+through them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -58,13 +64,6 @@ def loss_and_grads(lm: LM, params, batch, *, remat: bool = True):
         loss = lm.loss(live, batch, remat=remat)
         grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
     return loss.detach().float(), tree_map(lambda t: grads[id(t)], live)
-
-
-def _check_mesh(mesh) -> None:
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{mesh}: the model axis (tensor parallelism) is not ported yet "
-            "(ROADMAP.md, module queue); use a mesh with model == 1")
 
 
 def param_shardings(lm: LM, mesh, rules):
@@ -93,7 +92,6 @@ def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: 
     if comm is None:
         return _single_device_step(lm, optimizer, remat, grad_accum)
     mesh = comm.mesh
-    _check_mesh(mesh)
     if multi_pod is None:
         multi_pod = "pod" in mesh.shape
     rules = rules or shd.train_rules(multi_pod)
@@ -102,23 +100,24 @@ def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: 
     baxes = shd.batch_axes(mesh, rules)
 
     def sync(g, spec):
-        """The full gradient's sum over the ranks, reduced to this rank's
-        shard: reduce-scatter over the sharded axes, all-reduce over the
-        other batch axes."""
-        found = shd.sharded_dim(spec, mesh)
-        axes = found[1] if found else ()
-        if found:
-            g = comm.reduce_scatter(g, axes, found[0])
-        rest = tuple(a for a in baxes if a not in axes)
+        """The gradient of this rank's ``model`` shard summed over the batch
+        ranks, reduced to this rank's shard: reduce-scatter over the
+        ``data``-like axes a dim is split on, all-reduce over the other
+        batch axes; nothing over ``model``."""
+        done = ()
+        for dim, axes in shd.sharded_dim(spec, mesh):
+            if "model" not in axes:
+                g = comm.reduce_scatter(g, axes, dim)
+                done += axes
+        rest = tuple(a for a in baxes if a not in done)
         return comm.all_reduce(g, rest) if rest else g
 
     def global_norm(grads):
-        """sqrt of the squares of the sharded leaves (all-reduced over their
-        axes) plus those of the replicated ones."""
+        """sqrt of the leaves' sums of squares, each all-reduced over the
+        axes its leaf is split on."""
         parts = {}
         for g, spec in zip(leaves(grads), leaves(specs)):
-            found = shd.sharded_dim(spec, mesh)
-            key = found[1] if found else ()
+            key = tuple(a for _, axes in shd.sharded_dim(spec, mesh) for a in axes)
             parts[key] = parts.get(key, 0.0) + torch.sum(torch.square(g.float()))
         total = 0.0
         for axes, part in parts.items():
@@ -135,7 +134,8 @@ def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: 
         return out
 
     def step(state: TrainState, batch):
-        full = tree_map(lambda t, spec: shd.gather_leaf(t, spec, comm), state.params, specs)
+        full = tree_map(lambda t, spec: shd.gather_leaf(t, spec, comm, keep=("model",)),
+                        state.params, specs)
         loss, grads = 0.0, None
         with shd.activation_ctx(comm, rules):
             for i in range(grad_accum):
@@ -160,17 +160,22 @@ def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: 
     return step, state_shardings, batch_shardings
 
 
-def gather_state(state: TrainState, state_shardings: TrainState, comm, device="cpu") -> TrainState:
-    """The whole state from the ranks' shards, leaf by leaf onto ``device``
-    (every rank takes part; a checkpoint's writer is rank 0). Each shard
-    moves to ``device`` before the gather, so a host-staged gather onto the
-    host does not take the whole leaf through the card."""
+def gather_state(state: TrainState, state_shardings: TrainState, comm,
+                 device="cpu") -> Optional[TrainState]:
+    """The whole state from the ranks' shards (leaves split over one dim or
+    two), leaf by leaf onto ``device``, on rank 0 alone, the checkpoint's
+    writer: a gather, not an all-gather; every rank takes part and the
+    others get None. Each shard moves to ``device`` before the gather, so
+    a host-staged gather onto the host does not take the whole leaf
+    through the card."""
     def whole(tree, specs):
-        return tree_map(lambda t, spec: shd.gather_leaf(t.to(device), spec, comm), tree, specs)
+        return tree_map(lambda t, spec: shd.gather_leaf(t.to(device), spec, comm,
+                                                        to_first=True), tree, specs)
 
-    return TrainState(whole(state.params, state_shardings.params),
-                      whole(state.mu, state_shardings.mu), whole(state.nu, state_shardings.nu),
-                      state.step.to(device))
+    out = TrainState(whole(state.params, state_shardings.params),
+                     whole(state.mu, state_shardings.mu), whole(state.nu, state_shardings.nu),
+                     state.step.to(device))
+    return out if comm.rank == 0 else None
 
 
 def _single_device_step(lm: LM, optimizer: AdamW, remat: bool, grad_accum: int):
@@ -208,7 +213,6 @@ def _single_device_step(lm: LM, optimizer: AdamW, remat: bool, grad_accum: int):
 
 
 def _serve_rules(comm, rules, multi_pod):
-    _check_mesh(comm.mesh)
     if multi_pod is None:
         multi_pod = "pod" in comm.mesh.shape
     return rules or shd.serve_rules(multi_pod)
@@ -216,14 +220,15 @@ def _serve_rules(comm, rules, multi_pod):
 
 def build_decode_step(lm: LM, comm, rules=None, *, multi_pod: Optional[bool] = None):
     """Returns (step, shardings dict): ``step(params, batch, cache,
-    lengths)`` is `LM.decode_step` on this rank's rows (cache written in
-    place)."""
+    lengths, s_max=None)`` is `LM.decode_step` on this rank's rows and
+    shards (cache written in place; ``s_max`` places a sequence-split
+    cache, `LM.decode_step`)."""
     rules = _serve_rules(comm, rules, multi_pod)
     mesh = comm.mesh
 
-    def serve_step(params, batch, cache, lengths):
+    def serve_step(params, batch, cache, lengths, s_max=None):
         with shd.activation_ctx(comm, rules):
-            return lm.decode_step(params, batch, cache, lengths)
+            return lm.decode_step(params, batch, cache, lengths, s_max=s_max)
 
     def cache_shardings(cache_tree):
         return shd.tree_shardings(shd.cache_axes_tree(cache_tree), cache_tree, mesh, rules)

@@ -1166,3 +1166,89 @@ def test_nccl_ranks_on_two_cards_equal_cpu_ranks(cuda):
     cpu, _ = _rank_runs("cpu", "gloo")
     _same_runs(card, cpu)
     assert launches["flash_attention"] > 0
+
+
+@pytest.mark.parametrize("B,H,KVH,S,D,c_dt", [
+    (8, 16, 1, 1056, 128, "bf16"),  # a qwen3-0.6b-like cache shard, all H heads
+    (8, 10, 1, 1024, 256, "bf16"),  # recurrentgemma-2b's ring shard at model = 2
+    (3, 6, 1, 77, 18, "f32"),  # the CUDA cores' element path
+])
+def test_decode_log_sum_exp_and_shard_merge_equal_plain(cuda, B, H, KVH, S, D, c_dt):
+    """``return_lse``: the kernel's output and (B, H) log-sum-exp against
+    the plain version's, rows with no valid position included (zeros and
+    -inf); two position shards merged by `merge_partials` against the plain
+    version over the whole cache."""
+    from repro_torch.kernels.decode_attention import kernel_cuda, ref
+    from repro_torch.models.attention import merge_partials
+
+    rng = np.random.default_rng(B + S + D)
+    q = _randn(rng, (B, H, D), cuda)
+    kc, vc = (_randn(rng, (B, KVH, 2 * S, D), cuda, _ATT_DTYPES[c_dt]) for _ in range(2))
+    valid = rng.integers(1, 2 * S + 1, size=B)
+    valid[0], valid[1], valid[-1] = 1, S, 2 * S
+    outs, lses = [], []
+    for r in range(2):
+        n = torch.from_numpy(np.clip(valid - r * S, 0, S).astype(np.int32)).to(cuda)
+        ks, vs = kc[:, :, r * S:(r + 1) * S].contiguous(), vc[:, :, r * S:(r + 1) * S].contiguous()
+        before = kernel_cuda.decode_attention_cuda.lse_launches
+        o, lse = kernel_cuda.decode_attention_cuda(q, ks, vs, n, return_lse=True)
+        assert kernel_cuda.decode_attention_cuda.lse_launches == before + 1
+        po, plse = ref.decode_attention_ref(q, ks, vs, n, return_lse=True)
+        torch.testing.assert_close(o, po, atol=2e-5, rtol=2e-5)
+        empty = n == 0
+        assert torch.isneginf(lse[empty]).all() and not o[empty].any()
+        torch.testing.assert_close(lse[~empty], plse[~empty], atol=2e-5, rtol=2e-5)
+        outs.append(o)
+        lses.append(lse)
+    merged = merge_partials(torch.stack(outs), torch.stack(lses),
+                            lambda t: t.amax(0, keepdim=True), lambda t: t.sum(0, keepdim=True))[0]
+    want = ref.decode_attention_ref(q, kc, vc, torch.from_numpy(valid.astype(np.int32)).to(cuda))
+    torch.testing.assert_close(merged, want, atol=2e-5, rtol=2e-5)
+
+
+def _tp_runs(device, backend):
+    """A dense config (qwen3-0.6b, KV heads split) and a sequence-sharded
+    one (granite-20b, its one KV head: the cache's sequence split, merged
+    by the log-sum-exp) served on a 1x2 mesh at reduce 8."""
+    import torch_rank_programs as progs
+    from repro_torch.distributed.comm import run_ranks, summed_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+
+    jobs = []
+    for i, arch in enumerate(("qwen3-0.6b", "granite-20b")):
+        kw = dict(arch=arch, reduce=8)
+        params = layers.tree_map(lambda t: t.numpy(), progs.lm_of(**kw).init(
+            torch.Generator().manual_seed(i), torch.float32))
+        prompts = np.random.default_rng(i).integers(0, 4096, (4, 40))
+        jobs.append((arch, dict(program="tp_serve", arch_kw=kw, params=params,
+                                batch={"tokens": prompts}, gen=6, prompts=prompts)))
+    recs = run_ranks(progs.run_jobs, make_mesh((1, 2), ("data", "model")), jobs,
+                     backend=backend, device=device, timeout_s=300)
+    return [r["result"] for r in recs], summed_launches(recs), [
+        r["decode_lse_launches"] for r in recs]
+
+
+def _same_tp_runs(card, cpu):
+    for a, b in zip(card, cpu):
+        for arch in a:
+            np.testing.assert_array_equal(a[arch]["tokens"], b[arch]["tokens"])
+            np.testing.assert_array_equal(a[arch]["served"], b[arch]["served"])
+            torch.testing.assert_close(a[arch]["logits"], b[arch]["logits"], rtol=2e-3, atol=2e-3)
+
+
+def test_two_gloo_model_ranks_on_the_card_equal_cpu_ranks(cuda):
+    card, launches, lse = _tp_runs("cuda", "gloo")
+    cpu, _, _ = _tp_runs("cpu", "gloo")
+    _same_tp_runs(card, cpu)
+    assert launches["flash_attention"] > 0 and launches["decode_attention"] > 0
+    assert all(n > 0 for n in lse)  # granite's sequence-split cache
+
+
+def test_nccl_model_ranks_on_two_cards_equal_cpu_ranks(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs one card per rank: fewer than 2 cards")
+    card, launches, lse = _tp_runs("cuda", "nccl")
+    cpu, _, _ = _tp_runs("cpu", "gloo")
+    _same_tp_runs(card, cpu)
+    assert launches["decode_attention"] > 0 and all(n > 0 for n in lse)

@@ -21,11 +21,21 @@ The twin is held to the reference's Pallas kernel in interpret mode (its
 jnp ref where S is not a multiple of 64) and to the port's
 `decode_attention_ref`, on the same seeded numpy inputs, within 2e-5
 abs/rel, the f32 tolerance of the card's checks.
+
+With ``return_lse`` the kernel's combine also writes each row's
+log-sum-exp m + log(l) from the (max, sum) it merged (a zero output and
+-inf where a row has no valid position). The twin's, and the port's plain
+version's, are held to the log-sum-exp of the reference's masked scaled
+logits; and a cache cut into position shards (as ``model`` ranks hold a
+sequence-split cache, some shards empty, a local ring that has wrapped)
+merged by `merge_partials` equals the reference's attention over the
+whole cache, within the same 2e-5.
 """
 
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +46,7 @@ from repro.kernels.decode_attention import kernel as ref_dec_kernel  # noqa: E40
 from repro.kernels.decode_attention import ref as ref_dec  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel_cuda  # noqa: E402
 from repro_torch.kernels.decode_attention import ref  # noqa: E402
+from repro_torch.models.attention import merge_partials  # noqa: E402
 
 TOL = 2e-5
 H100_SMS = 132
@@ -110,9 +121,10 @@ def product(a: torch.Tensor, b: torch.Tensor, tc: bool) -> torch.Tensor:
     return out
 
 
-def twin_decode(q, k, v, lengths, *, scale=None, sms=H100_SMS):
+def twin_decode(q, k, v, lengths, *, scale=None, sms=H100_SMS, return_lse=False):
     """(B, H, D) x (B, KVH, S, D) caches, (B,) lengths -> float32 (B, H, D),
-    in the kernel's split, tile and combine order."""
+    in the kernel's split, tile and combine order (and with ``return_lse``
+    the (B, H) log-sum-exp its combine writes)."""
     B, H, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
     G = H // KVH
@@ -122,9 +134,13 @@ def twin_decode(q, k, v, lengths, *, scale=None, sms=H100_SMS):
     scale = D**-0.5 if scale is None else scale
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.empty(B, H, D)
+    lse = torch.full((B, H), float("-inf"))
     for b in range(B):
         n = min(int(lengths[b]), S)
         nv = cdiv(n, Ls)
+        if nv == 0:  # nothing valid: NaN, or with the log-sum-exp zeros and -inf
+            out[b] = 0.0 if return_lse else float("nan")
+            continue
         for kvh in range(KVH):
             for hb in range(pl["nhb"]):
                 h0 = kvh * G + hb * pl["hp"]
@@ -145,9 +161,10 @@ def twin_decode(q, k, v, lengths, *, scale=None, sms=H100_SMS):
                         acc = acc * alpha[:, None] + product(e, vf[b, kvh, pos], tc)
                         m = m_new
                     parts.append((m, l, acc))
-                _, L, acc = parts[0] if nv == 1 else _merge(parts)
+                M, L, acc = parts[0] if nv == 1 else _merge(parts)
                 out[b, heads] = acc / L[:, None]
-    return out
+                lse[b, heads] = M + torch.log(L)
+    return (out, lse) if return_lse else out
 
 
 def _inputs(seed, B, H, KVH, S, D, cache_dtype):
@@ -259,3 +276,79 @@ def test_bf16_pieces_are_exact_enough():
     assert ((x.double() - s0.double() - s1.double()).abs() > 2.0**-20 * x.double().abs()).any()
     kc = x.bfloat16().float()
     assert torch.equal(bf16_pieces(kc)[0], kc) and not bf16_pieces(kc)[1].any()
+
+
+# ----------------------------------------------------------------- log-sum-exp and shards
+
+
+def ref_lse(q, k, v, lengths, scale=None):
+    """The log-sum-exp of the reference's masked scaled logits (its plain
+    version's), -inf where a row has nothing valid."""
+    D = q.shape[-1]
+    scale = D**-0.5 if scale is None else scale
+    g = q.shape[1] // k.shape[1]
+    kx = jnp.repeat(jnp.asarray(k), g, axis=1)
+    logits = jnp.einsum("bhd,bhsd->bhs", jnp.asarray(q), kx) * scale
+    mask = jnp.arange(k.shape[2])[None, None, :] < jnp.asarray(lengths)[:, None, None]
+    return np.asarray(jax.scipy.special.logsumexp(jnp.where(mask, logits, -jnp.inf), axis=-1))
+
+
+@pytest.mark.parametrize("B,H,KVH,S,D,cache_dtype", [CASES[1], CASES[2], CASES[3], CASES[4]])
+def test_twin_and_plain_log_sum_exp_match_reference(B, H, KVH, S, D, cache_dtype):
+    (q_np, k_np, v_np), (q, kc, vc) = _inputs(B + S + D, B, H, KVH, S, D, cache_dtype)
+    lengths = _lengths(B, H, KVH, S, tensor_cores(D, cache_dtype))
+    lengths[-1] = 0  # a row with no valid position: zeros and -inf
+    want = ref_lse(q_np, k_np, v_np, lengths)
+    got_out, got = twin_decode(q, kc, vc, lengths, return_lse=True)
+    plain_out, plain = ref.decode_attention_ref(q, kc, vc, torch.from_numpy(lengths),
+                                                return_lse=True)
+    for o, lse in ((got_out, got), (plain_out, plain)):
+        assert torch.isneginf(lse[-1]).all() and not o[-1].any() and not o.isnan().any()
+        _close(lse[:-1], want[:-1])
+    _close(got_out[:-1], ref_dec.decode_attention_ref(*(jnp.asarray(a) for a in (
+        q_np, k_np, v_np, lengths)))[:-1])
+    # Without the log-sum-exp the plain output is as before (NaN: 0 / 0).
+    bare = ref.decode_attention_ref(q, kc, vc, torch.from_numpy(lengths))
+    assert bare[-1].isnan().all() and torch.equal(bare[:-1], plain_out[:-1])
+
+
+def _shard_lengths(valid, offsets, size):
+    return [np.clip(valid - off, 0, size).astype(np.int32) for off in offsets]
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("ring", [False, True])
+def test_position_shards_merge_to_reference(n_shards, ring):
+    """A cache cut into ``n_shards`` contiguous position shards (as the
+    ``model`` ranks hold recurrentgemma-2b's ring and granite-20b's causal
+    cache), each attended on its own with the log-sum-exp (the valid count
+    of shard r: clamp(valid - r * S / n, 0, S / n), zero for some rows),
+    then merged, equals the reference's attention over the whole cache. A
+    wrapped ring holds its window in slot order p % W: a permutation of the
+    positions, which the softmax does not see."""
+    B, H, KVH, S, D = 5, 10, 1, 256, 64
+    (q_np, k_np, v_np), (q, kc, vc) = _inputs(7 + n_shards, B, H, KVH, S, D, "f32")
+    valid = np.array([1, 40, 130, S, 200], np.int32)
+    if ring:  # the last window of positions 0 .. len, at slot p % S
+        valid = np.array([S, S, S, S, 77], np.int32)
+        shift = np.array([5, 100, 255, 0, 0])
+        for b in range(B):
+            k_np[b], v_np[b] = (np.roll(a[b], shift[b], axis=1) for a in (k_np, v_np))
+        kc, vc = torch.from_numpy(k_np), torch.from_numpy(v_np)
+    size = S // n_shards
+    offs = [r * size for r in range(n_shards)]
+    outs, lses = [], []
+    for off, n in zip(offs, _shard_lengths(valid, offs, size)):
+        o, lse = twin_decode(q, kc[:, :, off:off + size].contiguous(),
+                             vc[:, :, off:off + size].contiguous(), n, return_lse=True)
+        po, plse = ref.decode_attention_ref(q, kc[:, :, off:off + size], vc[:, :, off:off + size],
+                                            torch.from_numpy(n), return_lse=True)
+        _close(o, po)
+        _close(lse.clamp(min=-1e30), plse.clamp(min=-1e30))
+        outs.append(o)
+        lses.append(lse)
+    assert any(torch.isneginf(x).any() for x in lses)  # some shard holds nothing
+    merged = merge_partials(torch.stack(outs), torch.stack(lses),
+                            lambda t: t.amax(0, keepdim=True), lambda t: t.sum(0, keepdim=True))[0]
+    want = ref_dec.decode_attention_ref(*(jnp.asarray(a) for a in (q_np, k_np, v_np, valid)))
+    _close(merged, want)

@@ -339,9 +339,20 @@ def test_ranks_name_their_transport_and_default_to_the_card(monkeypatch):
 
 
 def test_launchers_refuse_the_model_axis():
+    """The launchers take ``--mesh 2x2`` (FSDP x tensor parallelism; four
+    gloo ranks on the CPU): the losses of the 2x2 run equal the 1x1 run's
+    and the served tokens the 1x1 serve's. A mesh whose ranks the
+    transport cannot place still raises: NCCL on the CPU."""
+    argv = ["--device", "cpu", "--reduce", "8"]
+    tr = argv + ["--steps", "2", "--batch", "4", "--seq", "16"]
+    np.testing.assert_allclose(train.main(tr + ["--mesh", "2x2", "--dist-backend", "gloo"]),
+                               train.main(tr), rtol=1e-5)
+    sv = argv + ["--requests", "4", "--prompt-len", "8", "--gen", "3"]
+    np.testing.assert_array_equal(serve.main(sv + ["--mesh", "2x2", "--dist-backend", "gloo"]),
+                                  serve.main(sv))
     for main in (train.main, serve.main):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--device", "cpu", "--mesh", "2x2", "--dist-backend", "gloo"])
+        with pytest.raises(ValueError, match="gloo"):
+            main(["--device", "cpu", "--mesh", "2x2", "--dist-backend", "nccl"])
 
 
 def test_serve_steps_on_a_one_rank_mesh_equal_the_model():
@@ -369,5 +380,8 @@ def test_serve_steps_on_a_one_rank_mesh_equal_the_model():
     assert pinfo["params"] == dinfo["params"] == param_shardings(lm, comm.mesh, rules)
     assert pinfo["cache"] == dinfo["cache"](lm.cache_spec_tree(2, 16))
     assert dinfo["batch"]({"tokens": tokens}) == {"tokens": ("data",)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_decode_step(lm, types.SimpleNamespace(mesh=make_mesh((1, 2), ("data", "model"))))
+    # A 1x2 mesh's steps take its model shards: the serve rules' specs.
+    two = make_mesh((1, 2), ("data", "model"))
+    _, info = build_decode_step(lm, types.SimpleNamespace(mesh=two))
+    assert info["params"] == param_shardings(lm, two, rules)
+    assert info["params"]["blocks"]["pos0_moe"]["attn"]["wq"] == (None, None, "model")

@@ -183,6 +183,53 @@ def test_elastic_mesh_refuses_and_survivors():
     assert survivors(8, [1, 1, 5]) == ref_elastic.survivors(8, [1, 1, 5]) == 6
 
 
+def test_sharded_dim_lists_every_split_dim_and_head_boundaries():
+    mesh = mesh_mod.make_mesh((2, 2), ("data", "model"))
+    lm = LM(configs.get_config("qwen3-0.6b"))
+    specs = param_shardings(lm, mesh, shd.train_rules(False))
+    wq = specs["blocks"]["pos0_dense"]["attn"]["wq"]  # (layers, embed, heads)
+    assert wq == (None, "data", "model")
+    assert shd.sharded_dim(wq, mesh) == [(1, ("data",)), (2, ("model",))]
+    dbrx = param_shardings(LM(configs.get_config("dbrx-132b")), mesh, shd.train_rules(False))
+    assert shd.sharded_dim(dbrx["blocks"]["pos0_moe"]["moe"]["we1"], mesh) == [
+        (1, ("model",)), (2, ("data",))]  # (layers, experts, embed, None)
+    assert shd.sharded_dim((("pod", "data"), None, "model"), mesh_mod.make_mesh(
+        (1, 2, 2), ("pod", "data", "model"))) == [(0, ("data",)), (2, ("model",))]
+    assert shd.sharded_dim(wq, mesh_mod.make_mesh((1, 1), ("data", "model"))) == []
+    # model = 2: qwen3-0.6b's 16 heads of 128 split on a head boundary;
+    # recurrentgemma-2b's one KV head of 256 does not.
+    assert shd.split_on_heads(16 * 128 // 2, 128)
+    assert not shd.split_on_heads(256 // 2, 256)
+
+
+def test_gather_leaf_over_two_dims_on_four_ranks():
+    """A leaf split over data and model on a 2x2 mesh: all-gathered whole,
+    gathered over data only (the model shard kept, as the FSDP x TP step
+    does) and gathered to rank 0 alone (a checkpoint)."""
+    from repro_torch.distributed.comm import run_ranks
+
+    import torch_rank_programs as progs
+
+    mesh = mesh_mod.make_mesh((2, 2), ("data", "model"))
+    whole = np.arange(4 * 6 * 8, dtype=np.float32).reshape(4, 6, 8)
+    specs = [("data", None, "model"), (None, "model"), ("model", "data"), ()]
+    recs = run_ranks(progs.run_jobs, mesh, [("g", dict(program="gather_leaves", whole=whole,
+                                                      specs=specs))],
+                     backend="gloo", device="cpu", timeout_s=120)
+    for r in recs:
+        coords = mesh.coords(r["rank"])
+        for spec, got in zip(specs, r["result"]["g"]):
+            assert got["dims"] == shd.sharded_dim(spec, mesh)
+            assert torch.equal(got["all"], torch.from_numpy(whole))
+            model_only = tuple("model" if e == "model" else None for e in spec)
+            want = whole[shd.shard_index(model_only, whole.shape, mesh, coords)]
+            assert torch.equal(got["keep_model"], torch.from_numpy(want))
+            if r["rank"] == 0:
+                assert torch.equal(got["to_first"], torch.from_numpy(whole))
+            else:
+                assert got["to_first"] is None
+
+
 # ----------------------------------------------------------------- elastic restart
 
 
@@ -224,7 +271,7 @@ def test_two_rank_checkpoint_restores_on_one_rank_and_in_reference(two_rank_chec
     for spec, a, b, w in zip(leaves(sh2.params), leaves(parts[0].mu), leaves(parts[1].mu),
                              leaves(plain.mu)):
         found = shd.sharded_dim(spec, two)
-        got = torch.cat([a, b], dim=found[0]) if found else a
+        got = torch.cat([a, b], dim=found[0][0]) if found else a
         assert torch.equal(got, w) and (found or torch.equal(a, b))
 
     # The reference reads the same files into its own TrainState.

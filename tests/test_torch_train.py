@@ -368,9 +368,14 @@ def test_train_main_on_cpu_resumes(tmp_path, capsys):
 
 
 def test_train_main_refuses_meshes_and_absent_card():
-    # The model axis (tensor parallelism) is not ported; --mesh Dx1 is.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --mesh 1x2 trains (tensor parallelism) where the transport is named
+    # gloo on the CPU; the default nccl moves CUDA tensors only.
+    with pytest.raises(ValueError, match="gloo"):
         train.main(["--device", "cpu", "--mesh", "1x2"])
+    tp = train.main(["--device", "cpu", "--mesh", "1x2", "--dist-backend", "gloo", "--steps",
+                     "1", "--batch", "2", "--seq", "16"])
+    np.testing.assert_allclose(tp, train.main(["--device", "cpu", "--steps", "1", "--batch",
+                                               "2", "--seq", "16"]), rtol=1e-5)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-CUDA error cannot be shown")
     with pytest.raises(RuntimeError, match="cuda"):

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.distributed import sharding
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.distributed import sharding, tensor_parallel
 from repro_torch.launch.serve import reduce_config, serve_batch
 from repro_torch.models import LM
 from repro_torch.models.layers import tree_map
@@ -23,7 +24,7 @@ from repro_torch.train import build_train_step, pipeline
 from repro_torch.train.compressed_dp import build_compressed_dp_train_step
 from repro_torch.distributed.comm import Comm, local_rows
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.train.steps import gather_state, loss_and_grads
+from repro_torch.train.steps import gather_state, loss_and_grads, param_shardings
 
 
 def lm_of(arch, reduce=None, **replace):
@@ -159,5 +160,110 @@ def collectives(comm):
     return out
 
 
-PROGRAMS = {f.__name__: f for f in (compressed_sums, compressed_sync, compressed_steps,
-                                    fsdp_steps, pp_grads, serve, collectives)}
+def shapes_of(tree):
+    return tree_map(lambda t: tuple(t.shape), tree)
+
+
+def tp_serve(comm, arch_kw, params, batch, gen, decode_embeds=None, prompts=None):
+    """One config on this rank's shards under ``serve_rules``: prefill and
+    ``gen`` greedy ``decode_step``s with float32 caches (the vocab-parallel
+    argmax; the logits gathered), ``serve_batch``'s tokens from
+    ``prompts`` (bf16 caches), and the rank's parameter and cache shapes.
+    ``decode_embeds`` (gen, B, 1, D): the inputs of an arch that takes
+    embeddings."""
+    lm = lm_of(**arch_kw)
+    rules = sharding.serve_rules(False)
+    specs = param_shardings(lm, comm.mesh, rules)
+    p = sharding.shard_tree(tensors(params, "cpu"), specs, comm.mesh, comm.coords, comm.device)
+    b = tensors(batch, comm.device)
+    n = next(iter(b.values())).shape[1]
+    s_max = n + gen
+    out = {"param_shapes": shapes_of(p)}
+    with sharding.activation_ctx(comm, rules):
+        tp = tensor_parallel.current()
+        logits, cache, lengths = lm.prefill(p, b, s_max=s_max, cache_dtype=torch.float32)
+        out["cache_shapes"] = shapes_of(cache)
+        seen, toks = [], []
+        for i in range(gen):
+            seen.append(tensor_parallel.vocab_whole(logits, lm.cfg.vocab_size))
+            tok = tp.argmax(logits) if logits.shape[-1] < lm.cfg.vocab_size else logits.argmax(-1)
+            toks.append(tok)
+            if i == gen - 1:
+                break
+            nxt = ({"embeds": torch.from_numpy(decode_embeds[i]).to(comm.device)}
+                   if decode_embeds is not None else {"tokens": tok[:, None]})
+            logits, cache, lengths = lm.decode_step(p, nxt, cache, lengths, s_max=s_max)
+    out["logits"] = torch.stack(seen, 1)
+    out["tokens"] = torch.stack(toks, 1)
+    if prompts is not None:
+        out["served"] = serve_batch(lm, p, prompts, gen, comm=comm)
+    return out
+
+
+def tp_train(comm, arch_kw, params, batches, lr, eps, ckpt=None, replicated_grads=False):
+    """Steps of the sharded `build_train_step` (FSDP over ``data``, tensor
+    parallelism over ``model``) from ``params``: losses, grad norms, the
+    rank's shard shapes, the gathered params (rank 0), and with
+    ``replicated_grads`` the first batch's gradients of the leaves
+    replicated over ``model`` as this rank computes them. With ``ckpt``,
+    rank 0 writes the state after the steps there."""
+    lm = lm_of(**arch_kw)
+    opt = AdamW(AdamWConfig(lr=lr, eps=eps),
+                cosine_schedule(lr, warmup_steps=1, total_steps=len(batches)))
+    step, shardings, _ = build_train_step(lm, opt, comm, remat=True)
+    state = opt.init(sharding.shard_tree(tensors(params, "cpu"), shardings.params, comm.mesh,
+                                         comm.coords, comm.device))
+    out = {"shard_shapes": shapes_of(state.params), "model_index": comm.axis_index("model"),
+           "data_index": comm.axis_index("data")}
+    if replicated_grads:
+        specs = shardings.params
+        full = tree_map(lambda t, s: sharding.gather_leaf(t, s, comm, keep=("model",)),
+                        state.params, specs)
+        with sharding.activation_ctx(comm, sharding.train_rules(False)):
+            _, grads = loss_and_grads(lm, full, local_rows(batches[0], comm, ("data",)))
+        out["replicated_grads"] = tree_map(
+            lambda g, s: None if any("model" in a for _, a in sharding.sharded_dim(s, comm.mesh))
+            else g, grads, specs)
+    losses, norms = [], []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    whole = gather_state(state, shardings, comm)
+    if ckpt is not None and comm.rank == 0:
+        CheckpointManager(ckpt).save(len(batches), whole, blocking=True)
+    out.update(losses=losses, grad_norms=norms,
+               params=whole.params if comm.rank == 0 else None)
+    return out
+
+
+def vocab_parallel(comm, logits, targets, table, tokens):
+    """The vocab-parallel argmax, cross-entropy and lookup of this rank's
+    columns (rows) of whole arrays."""
+    tp = tensor_parallel.TensorParallel(comm, comm.axis_size("model"), comm.axis_index("model"))
+    cols = logits.shape[-1] // tp.size
+    mine = torch.from_numpy(logits[..., tp.index * cols:(tp.index + 1) * cols])
+    rows = table.shape[0] // tp.size
+    return {"argmax": tp.argmax(mine[:, -1]),
+            "ce": tp.cross_entropy(mine, torch.from_numpy(targets)),
+            "lookup": tp.lookup(torch.from_numpy(table[tp.index * rows:(tp.index + 1) * rows]),
+                                torch.from_numpy(tokens))}
+
+
+def gather_leaves(comm, whole, specs):
+    """This rank's shard of ``whole`` under each spec, gathered back: over
+    every split axis, over all but ``model``, and to rank 0 alone."""
+    out = []
+    for spec in specs:
+        t = torch.from_numpy(whole)[sharding.shard_index(spec, whole.shape, comm.mesh,
+                                                          comm.coords)]
+        out.append({"dims": sharding.sharded_dim(spec, comm.mesh),
+                    "all": sharding.gather_leaf(t, spec, comm),
+                    "keep_model": sharding.gather_leaf(t, spec, comm, keep=("model",)),
+                    "to_first": sharding.gather_leaf(t, spec, comm, to_first=True)})
+    return out
+
+
+PROGRAMS = {f.__name__: f for f in (gather_leaves, compressed_sums, compressed_sync,
+                                    compressed_steps, fsdp_steps, pp_grads, serve, collectives,
+                                    tp_serve, tp_train, vocab_parallel)}
