@@ -281,12 +281,24 @@ exits non-zero; nothing is caught):
               (TRAIN_PARITY_ADAMW: at eps 1e-8 a first update is lr *
               sign(g), which turns rounding differences on near-zero
               gradients into full steps).
+16b. roofline - the port's dry run (`repro_torch.launch.dryrun.lower_cell`:
+              one rank's step on fake tensors, on the host; it launches
+              nothing) of the script's own qwen3-0.6b cells on a 1x1 mesh:
+              the train phase's step (28 layers, 8 x 1,024) and one decode
+              step of the serve phase (8 x 1,088 cache). flops_dev,
+              model_flops, the roofline terms on H100 constants
+              (`launch/rooftool.py`) and the achieved rate flops_dev /
+              step_s beside the step times the train and serve phases
+              measured, against the f32 peak (the port's products run in
+              f32, TF32 off); fails if a count is not positive or the
+              achieved rate exceeds that peak.
 
 17. dist_parity, tp_parity - ranks (`repro_torch.distributed.comm.run_ranks`;
               `phase_rank_parity`): card ranks sharing the card through
               host-staged gloo (NCCL refuses two ranks on one card), against
               the same ranks on the CPU, all at reduce 8; nothing here is
-              timed, so the six spawns run at once. dist_parity: qwen3-0.6b
+              timed, so the six spawns run at once (the CPU ranks' threads
+              split the host's cores between them). dist_parity: qwen3-0.6b
               and dbrx-132b on 2x1, 3 FSDP-sharded steps and 3
               compressed-DP steps (losses within rtol 1e-4, every parameter
               leaf within 1e-3 * max|leaf| + 1e-6; AdamW as
@@ -3379,6 +3391,60 @@ def phase_train_parity(device="cuda") -> dict:
     return info
 
 
+def phase_roofline(device_info: dict, train: dict, served: dict) -> dict:
+    """The dry run's counts of the train phase's qwen3-0.6b step and of one
+    decode step of the serve phase (1x1 mesh, fake tensors on the host:
+    nothing is launched), beside the step times those phases measured:
+    the achieved rate flops_dev / step_s against the f32 peak, the
+    roofline terms on H100 constants. ``train`` / ``served``: the phases'
+    lines."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, rooftool
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    arch, layers, batch, seq = TRAIN_RUNS["train"]
+    if arch != SERVE_ARCH or served["arch"] != arch:
+        raise AssertionError(f"roofline: the train and serve phases run {arch} and "
+                             f"{served['arch']}, not one arch")
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    # The train phase's fastest step: its first warms up, its last overlaps
+    # the checkpoint's writes (its step_ms is the median of its last two).
+    cells = {"train": (ShapeSpec("train", "train", seq, batch), min(train["step_s"])),
+             "decode": (ShapeSpec("decode", "decode", SERVE_PROMPT + SERVE_GEN, SERVE_REQUESTS),
+                        served["decode_ms_per_step"] / 1e3)}
+    out = {}
+    for name, (shape, step_s) in cells.items():
+        rec = dryrun.lower_cell(cfg, shape, mesh, multi_pod=False)
+        flops = rec["flops_dev"]
+        cell = rooftool.CellAnalysis(flops, rec["bytes_dev"], 0, rec["collectives"], 1)
+        tokens = shape.global_batch * (shape.seq_len if shape.kind == "train" else 1)
+        mf = rooftool.model_flops(cfg.active_param_count(), tokens, shape.kind)
+        achieved = flops / step_s
+        out[name] = {
+            "shape": dataclasses.asdict(shape), "dry_pass_s": rec["lower_s"],
+            "flops_dev": flops, "model_flops": mf, "useful_ratio": mf / flops,
+            "bytes_dev": rec["bytes_dev"], "arg_bytes_dev_bf16": rec["arg_bytes_dev"],
+            **{k: getattr(cell, k) for k in ("compute_s", "memory_s", "dominant", "bound_s")},
+            "compute_s_at_f32_peak": flops / rooftool.PEAK_FLOPS_F32,
+            "step_s_measured": step_s, "achieved_flops_per_s": achieved,
+            "share_of_f32_peak": achieved / rooftool.PEAK_FLOPS_F32,
+        }
+        if not (flops > 0 and mf > 0 and 0 < achieved <= rooftool.PEAK_FLOPS_F32):
+            raise AssertionError(f"roofline {name}: the dry run's count does not fit the "
+                                 f"measured step: {out[name]}")
+    info = {"phase": "roofline", "nvidia_smi": device_info["nvidia_smi"], "arch": arch,
+            "layers": layers, "mesh": "1x1", "cells": out,
+            "note": "FLOPs count products and the scans (kernels/shape_only.py); bytes are "
+                    "eager, unfused; the dry run's parameters are bf16, the measured "
+                    "steps' f32 (the FLOPs are the same)",
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    return info
+
+
 # --------------------------------------------------------------------- #
 # Across ranks: FSDP, compressed DP, GPipe over pod, serving over data
 # --------------------------------------------------------------------- #
@@ -3643,17 +3709,26 @@ def phase_rank_parity(device="cuda") -> tuple:
     _free_card(device)
     dist_in, tp_in = _dist_parity_inputs(), _tp_parity_inputs()
     mesh, one_two, two_two = make_mesh(*DIST_MESH), make_mesh(*TP_MESH), make_mesh(*TP_TRAIN_MESH)
-    card, cpu = dict(backend=DIST_BACKEND, device=device), dict(backend="gloo", device="cpu")
-    # The CPU twins of the model axis run one thread a rank: the reduced
-    # models' products gain little from more, and the card's ranks need the
-    # host.
+    # The three CPU twins run at once, so the host's cores are split
+    # between them, not each spawn's over its own mesh: three quarters to
+    # dist_parity's two ranks, the longest (its work scales with threads:
+    # tools/rank_transport.py), the rest to the model axis's six (one
+    # thread each on 8 cores).
+    cores = os.cpu_count() or 1
+    threads = {"dist": max(1, cores * 3 // 4 // mesh.size),
+               "tp": max(1, cores // 4 // (one_two.size + two_two.size))}
+    card = dict(backend=DIST_BACKEND, device=device)
+    cpu = dict(backend="gloo", device="cpu")
     with ThreadPoolExecutor(max_workers=6) as pool:
         runs = {"dist_card": _spawn(pool, _dist_parity_rank, mesh, dist_in, **card),
-                "dist_cpu": _spawn(pool, _dist_parity_rank, mesh, dist_in, **cpu),
+                "dist_cpu": _spawn(pool, _dist_parity_rank, mesh, dist_in, **cpu,
+                                   threads=threads["dist"]),
                 "tp_serve_card": _spawn(pool, _tp_serve_rank, one_two, tp_in["serve"], **card),
                 "tp_train_card": _spawn(pool, _tp_train_rank, two_two, tp_in["train"], **card),
-                "tp_serve_cpu": _spawn(pool, _tp_serve_rank, one_two, tp_in["serve"], 1, **cpu),
-                "tp_train_cpu": _spawn(pool, _tp_train_rank, two_two, tp_in["train"], 1, **cpu)}
+                "tp_serve_cpu": _spawn(pool, _tp_serve_rank, one_two, tp_in["serve"], **cpu,
+                                       threads=threads["tp"]),
+                "tp_train_cpu": _spawn(pool, _tp_train_rank, two_two, tp_in["train"], **cpu,
+                                       threads=threads["tp"])}
         got = {k: f.result() for k, f in runs.items()}
     spawn_s = {k: v[1] for k, v in got.items()}
     recs = {k: v[0] for k, v in got.items()}
@@ -3677,7 +3752,8 @@ def phase_rank_parity(device="cuda") -> tuple:
                             "prompts": [list(p) for p in DIST_PARITY_PROMPTS],
                             "gen": DIST_PARITY_GEN, "adamw": TRAIN_PARITY_ADAMW},
                  "archs": archs, **_ranks_info(recs["dist_card"]),
-                 "card_s": spawn_s["dist_card"], "cpu_s": spawn_s["dist_cpu"], "nccl": nccl,
+                 "card_s": spawn_s["dist_card"], "cpu_s": spawn_s["dist_cpu"],
+                 "cpu_threads_a_rank": threads, "nccl": nccl,
                  "block_s": block_s, "note": "spawns at once with tp_parity's (block_s)"}
     emit(dist_info)
     bad += [(arch, k) for arch, row in archs.items() for k, v in row.items()
@@ -4279,14 +4355,11 @@ def _tp_parity_inputs() -> dict:
     return out
 
 
-def _tp_serve_rank(comm, inputs: dict, threads: Optional[int] = None) -> dict:
+def _tp_serve_rank(comm, inputs: dict) -> dict:
     """Each arch of ``inputs`` served greedily on this rank's shards under
-    ``serve_rules`` with a float32 cache (`_tp_generate`); ``threads``: the
-    rank's host threads, where given."""
+    ``serve_rules`` with a float32 cache (`_tp_generate`)."""
     import torch
 
-    if threads:
-        torch.set_num_threads(threads)
     from repro_torch import configs
     from repro_torch.distributed import sharding
     from repro_torch.launch import serve
@@ -4308,14 +4381,11 @@ def _tp_serve_rank(comm, inputs: dict, threads: Optional[int] = None) -> dict:
     return out
 
 
-def _tp_train_rank(comm, inputs: dict, threads: Optional[int] = None) -> dict:
+def _tp_train_rank(comm, inputs: dict) -> dict:
     """DIST_PARITY_STEPS FSDP x TP steps of each arch of ``inputs`` (AdamW
-    as TRAIN_PARITY_ADAMW); the losses, and the gathered params on rank 0.
-    ``threads``: the rank's host threads, where given."""
+    as TRAIN_PARITY_ADAMW); the losses, and the gathered params on rank 0."""
     import torch
 
-    if threads:
-        torch.set_num_threads(threads)
     from repro_torch import configs
     from repro_torch.distributed import sharding
     from repro_torch.launch import serve
@@ -4682,6 +4752,7 @@ def main() -> int:
     grad = phase_grad_kernels()
     trains = {phase: phase_train(phase, *run) for phase, run in TRAIN_RUNS.items()}
     parity = phase_train_parity()
+    phase_roofline(info, trains["train"], served)
     dist, parity_s = phase_rank_parity()
     dist["train_fsdp"] = phase_train_fsdp()
     dist["train_tp"] = phase_train_tp(dist["train_fsdp"])

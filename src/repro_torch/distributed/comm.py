@@ -36,6 +36,9 @@ itself, through `torch.distributed`:
   rank's card and back the same way.
 - Bytes moved per collective kind are counted on the `Comm` (``.bytes``)
   and as ``comm.<kind>_bytes`` `repro_torch.obs` counters.
+- `DryComm` is a rank that moves nothing (no process group): its
+  collectives return tensors of the right shape and count their bytes,
+  so one rank's step runs on fake tensors (`repro_torch.launch.dryrun`).
 
 `run_ranks` spawns one process per mesh position (start method
 ``spawn``: the parent may have initialised CUDA) over a ``file://`` store
@@ -56,6 +59,7 @@ import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -94,6 +98,16 @@ def _axes(mesh, axis) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in names and mesh.shape[a] > 1)
 
 
+def _slices(mesh, axes: Tuple[str, ...]) -> List[List[int]]:
+    """The ranks of every slice of ``mesh`` along ``axes``, each slice
+    ascending in its own row-major order."""
+    ranks = np.arange(mesh.size).reshape(tuple(mesh.shape.values()))
+    keep = [mesh.axis_names.index(a) for a in axes]
+    rest = [d for d in range(ranks.ndim) if d not in keep]
+    n = int(np.prod([mesh.shape[a] for a in axes]))
+    return ranks.transpose(rest + keep).reshape(-1, n).tolist()
+
+
 class Comm:
     """One rank of a mesh: its coordinates, device and process groups. The
     transport is named (``backend``, no default) and the device is the
@@ -115,14 +129,9 @@ class Comm:
     def _build_groups(self) -> None:
         """Every rank creates every group, in one order (a collective)."""
         live = [a for a in self.mesh.axis_names if self.mesh.shape[a] > 1]
-        ranks = torch.arange(self.mesh.size).reshape(tuple(self.mesh.shape.values()))
         for k in range(1, len(live) + 1):
             for axes in itertools.combinations(live, k):
-                keep = [self.mesh.axis_names.index(a) for a in axes]
-                rest = [d for d in range(ranks.dim()) if d not in keep]
-                n = self.axis_size(axes)
-                # Each row: one slice's ranks, ascending in its row-major order.
-                for members in ranks.permute(rest + keep).reshape(-1, n).tolist():
+                for members in _slices(self.mesh, axes):
                     group = (dist.group.WORLD if len(members) == self.mesh.size
                              else dist.new_group(members))
                     if self.rank in members:
@@ -260,6 +269,87 @@ class Comm:
         return self._from_wire(recv, x)
 
 
+class DryComm(Comm):
+    """One rank of a mesh that moves nothing: the dry run's `Comm`
+    (`repro_torch.launch.dryrun`). Every collective returns an
+    uninitialised tensor of the shape the real one returns (a fake tensor
+    under ``FakeTensorMode``: nothing is allocated) and counts it:
+    ``bytes`` as `Comm` counts them, ``out_bytes`` as the output's bytes on
+    this rank (the reference rooftool's convention; they differ for a
+    reduce-scatter, whose input `Comm` counts, and a gather), ``calls`` the
+    collectives by kind. No process group is made; the device is the CPU;
+    the autograd Functions are `Comm`'s, so a backward's collectives count
+    too."""
+
+    def __init__(self, mesh, rank: int = 0):
+        self.mesh = mesh
+        self.rank = rank
+        self.backend = None
+        self.device = torch.device("cpu")
+        self.coords = mesh.coords(rank)
+        self.bytes: Dict[str, int] = collections.Counter()
+        self.out_bytes: Dict[str, int] = collections.Counter()
+        self.calls: Dict[str, int] = collections.Counter()
+        self._groups = {}
+
+    def _group(self, axis):
+        axes = _axes(self.mesh, axis)
+        if not axes:
+            return None, [self.rank]
+        if axes not in self._groups:
+            members = next(m for m in _slices(self.mesh, axes) if self.rank in m)
+            self._groups[axes] = ("dry", members)
+        return self._groups[axes]
+
+    def _tally(self, kind: str, sent: torch.Tensor, out_bytes: int) -> None:
+        self.bytes[kind] += sent.numel() * sent.element_size()
+        self.out_bytes[kind] += out_bytes
+        self.calls[kind] += 1
+
+    def _all_reduce(self, x, axis, op):
+        if self._group(axis)[0] is None:
+            return x
+        self._tally("all_reduce", x, x.numel() * x.element_size())
+        return torch.empty_like(x)
+
+    def _all_gather(self, x, axis, dim):
+        _, members = self._group(axis)
+        if len(members) == 1:
+            return x
+        shape = list(x.shape)
+        shape[dim] *= len(members)
+        out = x.new_empty(shape)
+        self._tally("all_gather", out, out.numel() * out.element_size())
+        return out
+
+    def reduce_scatter(self, x, axis, dim: int = 0):
+        _, members = self._group(axis)
+        if len(members) == 1:
+            return x
+        n = len(members)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+        shape = list(x.shape)
+        shape[dim] //= n
+        out = x.new_empty(shape)
+        self._tally("reduce_scatter", x, out.numel() * out.element_size())
+        return out
+
+    def _shift(self, x, axis, step: int):
+        if self._group(axis)[0] is None:
+            return x
+        self._tally("ring_permute", x, x.numel() * x.element_size())
+        return torch.empty_like(x)
+
+    def gather(self, x, axis):
+        _, members = self._group(axis)
+        if len(members) == 1:
+            return [x]
+        first = self.rank == members[0]
+        self._tally("gather", x, len(members) * x.numel() * x.element_size() if first else 0)
+        return [torch.empty_like(x) for _ in members] if first else None
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm, axis):
@@ -321,12 +411,48 @@ def _to_cpu(tree):
     return tree
 
 
+class _Array:
+    """A numpy array on its way to a spawned rank, as a tensor: torch.save
+    writes a tensor's storage as raw bytes, where pickling the array copies
+    it through the pickler, ~10x slower to write and ~20x to read
+    (`tools/rank_transport.py`)."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+
+_WIRE_DTYPES = {np.dtype(t) for t in (np.float64, np.float32, np.float16, np.int64, np.int32,
+                                      np.int16, np.int8, np.uint8, np.bool_)}
+
+
+def _pack(tree):
+    """``tree`` with each numpy array (of a dtype torch holds) as an `_Array`."""
+    if isinstance(tree, np.ndarray) and tree.dtype in _WIRE_DTYPES:
+        return _Array(torch.from_numpy(np.require(tree, requirements=["C", "W"])))
+    if type(tree) is dict:
+        return {k: _pack(v) for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(_pack(v) for v in tree)
+    return tree
+
+
+def _unpack(tree):
+    """`_pack`'s inverse: the rank gets the numpy arrays it was given."""
+    if isinstance(tree, _Array):
+        return tree.t.numpy()
+    if type(tree) is dict:
+        return {k: _unpack(v) for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(_unpack(v) for v in tree)
+    return tree
+
+
 def _rank_main(rank: int, mesh, backend: str, device: str, workdir: str,
-               timeout_s: float) -> None:
+               timeout_s: float, threads: Optional[int]) -> None:
     """A spawned rank: its process group, its `Comm`, ``fn``, its record."""
     from .. import kernels
 
-    fn, args = torch.load(os.path.join(workdir, "job.pt"), weights_only=False)
+    fn, args = _unpack(torch.load(os.path.join(workdir, "job.pt"), weights_only=False))
 
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: the loopback
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -336,7 +462,7 @@ def _rank_main(rank: int, mesh, backend: str, device: str, workdir: str,
         torch.backends.cuda.matmul.allow_tf32 = False
     else:
         dev = torch.device("cpu")
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+        torch.set_num_threads(threads or max(1, (os.cpu_count() or 1) // mesh.size))
     dist.init_process_group(backend, init_method=f"file://{workdir}/store",
                             world_size=mesh.size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
@@ -373,7 +499,7 @@ def transport_name(backend: str, device: str, n_ranks: int) -> str:
 
 
 def run_ranks(fn: Callable, mesh, *args, backend: str, device: str = "cuda",
-              timeout_s: float = 600.0) -> List[dict]:
+              timeout_s: float = 600.0, threads: Optional[int] = None) -> List[dict]:
     """Run ``fn(comm, *args)`` on one spawned process per position of
     ``mesh``; returns each rank's record in rank order: ``result`` (what
     ``fn`` returned, tensors moved to the CPU), ``launches`` (its kernel
@@ -383,7 +509,9 @@ def run_ranks(fn: Callable, mesh, *args, backend: str, device: str = "cuda",
     ``fn`` and ``args`` are pickled: ``fn`` must be a module-level function
     of a module that the rank can import. ``backend`` has no default (see
     `check_transport`); the ranks compute on the card unless ``device`` is
-    ``"cpu"``. Raises what a rank raised, or `TimeoutError` after
+    ``"cpu"``, each CPU rank with ``threads`` host threads (default: the
+    host's cores split over the mesh; pass fewer where other spawns run at
+    the same time). Raises what a rank raised, or `TimeoutError` after
     ``timeout_s`` (every rank is then killed)."""
     check_transport(backend, device, mesh.size)
     if resolve_device(device).type == "cuda":
@@ -394,9 +522,9 @@ def run_ranks(fn: Callable, mesh, *args, backend: str, device: str = "cuda",
         # Through a file, not the spawn pipe: a start blocks while a child
         # has not read its pickled arguments, so large ones would start the
         # ranks one after another.
-        torch.save((fn, tuple(args)), os.path.join(workdir, "job.pt"))
+        torch.save((fn, _pack(tuple(args))), os.path.join(workdir, "job.pt"))
         ctx = torch.multiprocessing.start_processes(
-            _rank_main, args=(mesh, backend, device, workdir, timeout_s),
+            _rank_main, args=(mesh, backend, device, workdir, timeout_s, threads),
             nprocs=mesh.size, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout_s
         try:

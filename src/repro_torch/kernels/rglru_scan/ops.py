@@ -3,7 +3,8 @@
 Dispatch follows gx's device and nothing else: a CPU tensor takes
 `ref.rglru_scan_ref` (differentiated by autograd), a CUDA tensor launches
 the kernel (or raises), anything else raises. There is no fallback from
-the kernel to the plain version.
+the kernel to the plain version. Fake tensors (the dry run,
+`repro_torch.launch.dryrun`) take `repro_torch.kernels.shape_only`.
 
 On the card, when an input requires grad, the launch goes through
 `RGLRUScan`, whose backward recomputes the plain version under autograd,
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import kernel_cuda, ref
 
@@ -50,6 +52,10 @@ def rglru_scan(
 ):
     """(states (B, T, D) in gx's dtype, final state (B, D) float32)."""
     kind = gx.device.type
+    if isinstance(gx, FakeTensor):  # the dry run: one shape-only op
+        from .. import shape_only
+
+        return shape_only.rglru_scan(log_a, gx, h0)
     if kind == "cuda":
         if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (log_a, gx, h0)

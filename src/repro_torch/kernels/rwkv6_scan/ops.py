@@ -19,7 +19,8 @@ autograd, from its saved state, with the output's and the carried state's
 cotangents. Peak memory: one chunk's residuals plus the chunk states.
 
 Dispatch follows r's device and nothing else; there is no fallback from
-the kernel to the plain version.
+the kernel to the plain version. Fake tensors (the dry run,
+`repro_torch.launch.dryrun`) take `repro_torch.kernels.shape_only`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import kernel_cuda, ref
 
@@ -99,6 +101,10 @@ def rwkv6_scan(
     kind = r.device.type
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
+    if isinstance(r, FakeTensor):  # the dry run: one shape-only op
+        from .. import shape_only
+
+        return shape_only.rwkv6_scan(r, k, v, w, u, s0, state_out)
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (r, k, v, w, u, s0)
     ):

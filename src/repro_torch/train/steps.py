@@ -37,8 +37,10 @@ slices this rank's rows (for ``grad_accum``: of each microbatch).
 
 `build_decode_step` / `build_prefill_step` run `LM.decode_step` /
 `LM.prefill` on this rank's rows and ``model`` shards under
-`serve_rules`; `repro_torch.launch.serve.serve_batch` serves a mesh rank
-through them, as the reference's does.
+`serve_rules`, first gathering any leaf that the rules split over other
+axes (``embed`` on ``data``: the reference's weight-gathered serving,
+which XLA gathers by itself); `repro_torch.launch.serve.serve_batch`
+serves a mesh rank through them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ def loss_and_grads(lm: LM, params, batch, *, remat: bool = True):
     flat = list(leaves(live))
     with torch.enable_grad():
         loss = lm.loss(live, batch, remat=remat)
-        grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
+        # A leaf the loss does not reach (the stacked blocks of a model
+        # with no superblock) gets zeros, as jax.grad gives it.
+        grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat, materialize_grads=True)))
     return loss.detach().float(), tree_map(lambda t: grads[id(t)], live)
 
 
@@ -218,6 +222,16 @@ def _serve_rules(comm, rules, multi_pod):
     return rules or shd.serve_rules(multi_pod)
 
 
+def _gathered(params, specs, comm):
+    """Each leaf all-gathered over the axes other than ``model`` that its
+    spec splits (weight-gathered serving: rules that put ``embed`` on
+    ``data``, as the dry run's for the largest models), in the whole
+    leaf's layout, so its products round as one device's; under
+    `serve_rules` no leaf is split there and each is returned as it is."""
+    return tree_map(lambda t, spec: shd.gather_leaf(t, spec, comm, keep=("model",)).contiguous(),
+                    params, specs)
+
+
 def build_decode_step(lm: LM, comm, rules=None, *, multi_pod: Optional[bool] = None):
     """Returns (step, shardings dict): ``step(params, batch, cache,
     lengths, s_max=None)`` is `LM.decode_step` on this rank's rows and
@@ -225,8 +239,10 @@ def build_decode_step(lm: LM, comm, rules=None, *, multi_pod: Optional[bool] = N
     cache, `LM.decode_step`)."""
     rules = _serve_rules(comm, rules, multi_pod)
     mesh = comm.mesh
+    specs = param_shardings(lm, mesh, rules)
 
     def serve_step(params, batch, cache, lengths, s_max=None):
+        params = _gathered(params, specs, comm)
         with shd.activation_ctx(comm, rules):
             return lm.decode_step(params, batch, cache, lengths, s_max=s_max)
 
@@ -234,7 +250,7 @@ def build_decode_step(lm: LM, comm, rules=None, *, multi_pod: Optional[bool] = N
         return shd.tree_shardings(shd.cache_axes_tree(cache_tree), cache_tree, mesh, rules)
 
     return serve_step, {
-        "params": param_shardings(lm, mesh, rules),
+        "params": specs,
         "cache": cache_shardings,
         "batch": lambda tree: shd.batch_spec_tree(tree, mesh, rules),
         "rules": rules,
@@ -247,14 +263,16 @@ def build_prefill_step(lm: LM, comm, rules=None, *, s_max: int, batch_size: int,
     `LM.prefill` on this rank's rows; ``batch_size`` is the global one."""
     rules = _serve_rules(comm, rules, multi_pod)
     mesh = comm.mesh
+    specs = param_shardings(lm, mesh, rules)
 
     def prefill_step(params, batch):
+        params = _gathered(params, specs, comm)
         with shd.activation_ctx(comm, rules):
             return lm.prefill(params, batch, s_max=s_max)
 
     cache_tree = lm.cache_spec_tree(batch_size, s_max)
     return prefill_step, {
-        "params": param_shardings(lm, mesh, rules),
+        "params": specs,
         "cache": shd.tree_shardings(shd.cache_axes_tree(cache_tree), cache_tree, mesh, rules),
         "batch": lambda tree: shd.batch_spec_tree(tree, mesh, rules),
         "rules": rules,

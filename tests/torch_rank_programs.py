@@ -22,9 +22,10 @@ from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
 from repro_torch.optim.compression import compressed_all_reduce, compressed_all_reduce_tree
 from repro_torch.train import build_train_step, pipeline
 from repro_torch.train.compressed_dp import build_compressed_dp_train_step
-from repro_torch.distributed.comm import Comm, local_rows
+from repro_torch.distributed.comm import Comm, local_rows, rank_rows
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.train.steps import gather_state, loss_and_grads, param_shardings
+from repro_torch.train.steps import (build_decode_step, build_prefill_step, gather_state,
+                                     loss_and_grads, param_shardings)
 
 
 def lm_of(arch, reduce=None, **replace):
@@ -264,6 +265,29 @@ def gather_leaves(comm, whole, specs):
     return out
 
 
+def gathered_serve(comm, arch_kw, params, prompts, gen, rules):
+    """Greedy serving of this rank's rows of ``prompts`` through
+    `build_prefill_step` / `build_decode_step` under ``rules`` (which may
+    split leaves over ``data``: weight-gathered serving), from this rank's
+    shards of ``params``: the shards' shapes, tokens and logits."""
+    lm = lm_of(**arch_kw)
+    specs = param_shardings(lm, comm.mesh, rules)
+    p = sharding.shard_tree(tensors(params, "cpu"), specs, comm.mesh, comm.coords, comm.device)
+    rows = prompts[rank_rows(len(prompts), comm, sharding.batch_axes(comm.mesh, rules))]
+    s_max = prompts.shape[1] + gen
+    prefill, _ = build_prefill_step(lm, comm, rules, s_max=s_max, batch_size=len(prompts))
+    decode, _ = build_decode_step(lm, comm, rules)
+    logits, cache, lengths = prefill(p, {"tokens": torch.from_numpy(rows).long()})
+    toks, seen = [], []
+    for i in range(gen):
+        seen.append(logits)
+        toks.append(logits.argmax(-1))
+        if i < gen - 1:
+            logits, cache, lengths = decode(p, {"tokens": toks[-1][:, None]}, cache, lengths)
+    return {"shapes": shapes_of(p), "tokens": torch.stack(toks, 1).to(torch.int32),
+            "logits": torch.stack(seen, 1)}
+
+
 PROGRAMS = {f.__name__: f for f in (gather_leaves, compressed_sums, compressed_sync,
                                     compressed_steps, fsdp_steps, pp_grads, serve, collectives,
-                                    tp_serve, tp_train, vocab_parallel)}
+                                    tp_serve, tp_train, vocab_parallel, gathered_serve)}
