@@ -311,24 +311,32 @@ exits non-zero; nothing is caught):
               caches; tokens equal, logits within 2e-3), granite-20b's and
               recurrentgemma-2b's caches sequence-sharded and merged by the
               decode kernel's log-sum-exp; ``--mesh 2x2`` 3 FSDP x TP steps
-              of qwen3-0.6b and dbrx-132b (the same rules). With enough
-              cards the same over NCCL; else "not run: 1 card".
+              of qwen3-0.6b and dbrx-132b (the same rules), and of
+              qwen3-0.6b with the residual stream split along the sequence
+              (``act_seq`` on ``model``): card against CPU ranks as the
+              others, and within rtol 1e-5 (step 1) / 1e-3 of the same
+              ranks' steps without it. With enough cards the same over
+              NCCL; else "not run: 1 card".
 18. train_fsdp - ``launch.train``, qwen3-0.6b full width with its depth cut
-              to 8 layers, the train phase's 8 x 1,024 batches: 3 steps on
-              one device (the baseline of 18-20), then ``--mesh 2x1
-              --dist-backend gloo``: 1 step, a checkpoint at 1 (its shards
-              gathered to rank 0 alone), a run resumed from it for step 1,
-              whose final checkpoint (step 2) is restored on one rank
-              (`elastic_mesh(1, 1)`) for the third step; the three losses
+              to 8 layers, the train phase's 8 x 1,024 batches, one chain
+              of checkpoints: 4 steps on one device (the baseline of
+              18-20), then ``--mesh 2x1 --dist-backend gloo``: 1 step, a
+              checkpoint at 1 (its shards gathered to rank 0 alone); a
+              ``--mesh 1x2`` run resumed from it (19); its final
+              checkpoint (step 3) restored on one rank
+              (`elastic_mesh(1, 1)`) for the fourth step; the losses
               against the baseline's (step 1 rtol 1e-5, later 1e-3); step
               ms, bytes gathered and reduce-scattered a step, each rank's
               peak memory, launches summed over the ranks.
-19. train_tp - ``launch.train --mesh 1x2 --dist-backend gloo``, the same
-              model and batches: 2 FSDP x TP steps, a checkpoint gathered
-              to rank 0, and ``--resume`` from it on one device for a
-              third; the losses against the baseline's (step 1 rtol 1e-5,
-              later 1e-3); step ms, bytes per collective kind, peak memory,
-              exact launches.
+19. train_tp - in 18's chain, ``launch.train --mesh 1x2 --dist-backend
+              gloo --resume``: 2 FSDP x TP steps from the 2x1 checkpoint
+              and a checkpoint gathered to rank 0; step ms, bytes per
+              collective kind, peak memory, exact launches. Then, in the
+              same ranks, 2 steps of ``build_train_step`` from the seed's
+              weights and the first batches under rules that map
+              ``act_seq`` to ``model`` (the residual stream split along
+              the sequence): the same checks and numbers against the
+              baseline's first steps, its launches counted from 0.
 20. train_pp, train_compressed - one spawn of two ranks, the weights
               drawn once. GPipe: the same model as 2 stages of 4 layers
               over ``pod``, 4 microbatches of 2 x 1,024: the loss within
@@ -3163,14 +3171,16 @@ def _train_profile(lm, batch, step_s: float) -> dict:
         float(metrics["loss"])
         wall = time.perf_counter() - t0
     del state
-    busy, by_kernel, launches = 0.0, {}, 0
+    busy, by_kernel, launches = 0.0, collections.Counter(), 0
     t0 = time.perf_counter()
-    for evt in prof.key_averages():
-        dev = getattr(evt, "device_time_total", 0.0) or 0.0
-        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA and dev > 0:
-            busy += dev / 1e3
-            by_kernel[evt.key] = dev / 1e3
-            launches += evt.count
+    # The trace's own events: key_averages() first builds a Python event
+    # tree, ~30 s for the 175,000 kernels of a recurrentgemma-2b step.
+    for evt in prof.profiler.kineto_results.events():
+        ms = evt.duration_ns() / 1e6
+        if evt.device_type() == torch.autograd.DeviceType.CUDA and ms > 0:
+            busy += ms
+            by_kernel[evt.name()] += ms
+            launches += 1
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {"profiled_wall_ms": wall * 1e3, "trace_read_s": time.perf_counter() - t0,
             "device_busy_ms": busy or None,
@@ -3468,7 +3478,7 @@ DIST_TRAIN = ("qwen3-0.6b", 8, 1024)  # arch, global batch, seq: the train phase
 # checkpoint's shards go to rank 0 alone (a gather). One one-card run of
 # the same 8 layers (train_fsdp's) is the baseline of all four.
 DIST_TRAIN_LAYERS = 8
-FSDP_STEPS, FSDP_CKPT_AT = 1, 1  # then the resumed run takes step 1
+FSDP_STEPS, FSDP_CKPT_AT = 1, 1  # then the 1x2 run resumes at step 1
 COMPRESSED_STEPS = 2
 DIST_FIRST_RTOL, DIST_LATER_RTOL = 1e-5, 1e-3  # step 1; later steps (AdamW eps 1e-8)
 PP_MICROBATCHES = 4  # of 2 x 1,024
@@ -3485,6 +3495,7 @@ TP_PARITY_SERVE_ARCHS = ("qwen3-0.6b", "dbrx-132b", "recurrentgemma-2b", "granit
                          "rwkv6-7b", "llama-3.2-vision-11b")
 TP_PARITY_PROMPTS, TP_PARITY_GEN = (4, 16), 16
 TP_PARITY_TRAIN_ARCHS = ("qwen3-0.6b", "dbrx-132b")
+TP_PARITY_SEQ_ARCHS = ("qwen3-0.6b",)  # again with act_seq on model
 # (layers or None for all, requests, prompt tokens, generated tokens);
 # recurrentgemma-2b's depth cut as train_recurrentgemma's, its 2,048-slot
 # ring sequence-sharded over the two ranks.
@@ -3492,7 +3503,16 @@ TP_PARITY_TRAIN_ARCHS = ("qwen3-0.6b", "dbrx-132b")
 # host-staged gloo takes ~200 ms a qwen3-0.6b decode step, measured on one
 # H100).
 SERVE_TP_RUNS = {"qwen3-0.6b": (None, 8, 1024, 16), "recurrentgemma-2b": (5, 8, 2048, 16)}
-TRAIN_TP_STEPS = 2  # DIST_TRAIN on --mesh 1x2; then one step more on one rank
+TRAIN_TP_STEPS = 2  # DIST_TRAIN on --mesh 1x2 from train_fsdp's checkpoint
+TRAIN_SEQ_STEPS = 2  # then, in the same ranks, with act_seq on model
+DIST_CHAIN_STEPS = FSDP_STEPS + TRAIN_TP_STEPS + 1  # and the elastic step
+
+
+def _act_seq_rules() -> dict:
+    """``train_rules`` with the residual stream's sequence over ``model``."""
+    from repro_torch.distributed import sharding
+
+    return {**sharding.train_rules(False), "act_seq": ("model",)}
 
 
 def _free_card(device) -> None:
@@ -3696,7 +3716,10 @@ def phase_rank_parity(device="cuda") -> tuple:
       to the port: `PERF.md` §7); granite-20b's and recurrentgemma-2b's
       caches sequence-sharded and merged by the decode kernel's
       log-sum-exp; the VLM with images. On ``--mesh 2x2`` 3 FSDP x TP
-      steps of qwen3-0.6b and dbrx-132b (the dist_parity rules).
+      steps of qwen3-0.6b and dbrx-132b (the dist_parity rules), then of
+      TP_PARITY_SEQ_ARCHS with the residual stream split along the
+      sequence (`_act_seq_rules`): card against CPU as the others, and
+      within rtol 1e-5 (step 1) / 1e-3 of the same ranks' steps without.
 
     Where the card count reaches a mesh's size, the same over NCCL after;
     else "not run: 1 card"."""
@@ -3789,7 +3812,8 @@ def phase_rank_parity(device="cuda") -> tuple:
         "config": {"reduce": 8, "serve_mesh": "1x2", "train_mesh": "2x2",
                    "prompts": list(TP_PARITY_PROMPTS), "gen": TP_PARITY_GEN,
                    "cache_dtype": "float32", "train_batch": list(DIST_PARITY_BATCH),
-                   "steps": DIST_PARITY_STEPS, "adamw": TRAIN_PARITY_ADAMW},
+                   "steps": DIST_PARITY_STEPS, "adamw": TRAIN_PARITY_ADAMW,
+                   "act_seq_archs": list(TP_PARITY_SEQ_ARCHS)},
         "checks": checks, "nccl": tp_nccl,
         "decode_lse_launches_by_rank": [r["decode_lse_launches"] for r in serve_recs],
         "serve_ranks": _ranks_info(serve_recs), "train_ranks": _ranks_info(recs["tp_train_card"]),
@@ -3856,19 +3880,108 @@ def _launch_depth(n_layers: int):
         train_mod.reduce_config, train_mod._train_rank = saved
 
 
+def _act_seq_steps(comm, args) -> dict:
+    """TRAIN_SEQ_STEPS steps of ``build_train_step`` under `_act_seq_rules`
+    from the weights and batches of ``launch.train``'s rank with ``args``
+    (its seed-0 draw, its `SyntheticLMData` and schedule): per step the
+    loss, grad norm, host seconds and bytes moved by collective kind."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+    from repro_torch.train import build_train_step
+
+    lm = LM(train_mod.reduce_config(configs.get_config(args.arch), args.reduce))
+    opt = AdamW(AdamWConfig(lr=args.lr),
+                schedule=cosine_schedule(args.lr, warmup_steps=10, total_steps=args.steps))
+    step_fn, sh, _ = build_train_step(lm, opt, comm, _act_seq_rules(), remat=True)
+    data = SyntheticLMData(DataConfig(vocab_size=lm.cfg.vocab_size, seq_len=args.seq,
+                                      global_batch=args.batch, mode=args.data_mode))
+    params = lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    state = opt.init(sharding.shard_tree(params, sh.params, comm.mesh, comm.coords,
+                                         comm.device))
+    del params
+    steps = []
+    for step in range(TRAIN_SEQ_STEPS):
+        moved = dict(comm.bytes)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, data.batch(step))
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "s": time.perf_counter() - t0,
+                      "comm_bytes": {k: v - moved.get(k, 0) for k, v in comm.bytes.items()
+                                     if v > moved.get(k, 0)}})
+    return {"losses": [r["loss"] for r in steps], "steps": steps}
+
+
+def _tp_seq_rank(n_layers: int, comm, args):
+    """A rank of train_tp's ``--mesh 1x2`` run: ``launch.train``'s
+    (`_cut_depth_rank`), then `_act_seq_steps` with the launch counts and
+    the peak memory set to 0 before them. Rank 0's record gets, under
+    ``act_seq``, the steps and every rank's launches and peak memory of
+    both runs."""
+    import torch
+
+    from repro_torch import kernels
+
+    out = _cut_depth_rank(n_layers, comm, args)
+    on_card = comm.device.type == "cuda"
+
+    def peak():
+        return torch.cuda.max_memory_allocated(comm.device) if on_card else 0
+
+    names = sorted(kernels.launch_counts())
+    runs = [(kernels.launch_counts(), peak())]
+    kernels.reset_launch_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(comm.device)
+    seq = _act_seq_steps(comm, args)
+    runs.append((kernels.launch_counts(), peak()))
+    mine = torch.tensor([[m] + [c[k] for k in names] for c, m in runs], dtype=torch.float64)
+    parts = comm.gather(mine, tuple(comm.mesh.axis_names))
+    if parts is not None:
+        for i, key in enumerate(("without", "with")):
+            seq[f"{key}_by_rank"] = [
+                {"max_memory_allocated": int(p[i, 0]),
+                 "launches": {k: int(p[i, j + 1]) for j, k in enumerate(names)}}
+                for p in parts]
+        out["record"]["act_seq"] = seq
+    return out
+
+
 def phase_train_fsdp(device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
                      seq: int = DIST_TRAIN[2]) -> dict:
     """``launch.train.main`` of qwen3-0.6b (at full width with ``reduce``
     1), its depth cut to DIST_TRAIN_LAYERS (`_launch_depth`), the train
-    phase's global batches and seed: first on one device, TRAIN_STEPS steps
-    (the baseline of every training phase across ranks); then ``--mesh 2x1
-    --dist-backend gloo``, 1 step and a checkpoint at 1, then a run resumed
-    from that checkpoint alone for step 1, which ends in its checkpoint at
-    2. Then the elastic restart: that step-2 checkpoint (written by two
-    ranks) restored on one rank (``elastic_mesh(1, 1)``'s shardings) and
-    the third step taken on one device. The three losses against the
-    one-device run's: step 1 within rtol 1e-5, the later ones 1e-3. Each
-    run's one step is its first: ``step_ms`` includes its warm-up."""
+    phase's global batches and seed, as one chain of checkpoints:
+
+    - one device, DIST_CHAIN_STEPS steps: the baseline of every training
+      phase across ranks;
+    - ``--mesh 2x1 --dist-backend gloo`` (FSDP): step 0 and a checkpoint
+      at 1;
+    - ``--mesh 1x2`` (tensor parallelism) resumed from that checkpoint
+      alone: TRAIN_TP_STEPS steps and a checkpoint at the last, gathered
+      to rank 0; in its ranks after them, TRAIN_SEQ_STEPS steps from the
+      seed's weights with the residual stream split along the sequence
+      (`_tp_seq_rank`);
+    - the elastic restart: that checkpoint (written by two model ranks)
+      restored on one rank (``elastic_mesh(1, 1)``'s shardings), and the
+      next step taken on one device.
+
+    Every loss against the one-device run's at its step (the ``act_seq``
+    steps from step 0): step 1 within rtol 1e-5, later 1e-3. Emits the
+    train_fsdp line (the FSDP step, the elastic one, the baseline) and the
+    train_tp line (the tensor-parallel steps and, under ``act_seq``, the
+    sequence-parallel ones: step ms (each run's second step), bytes a step
+    per collective kind, peak memory and launches a rank, the ``act_seq``
+    run's counted from 0); returns both records, train_tp's under
+    ``"train_tp"``. The FSDP run's one step is its first: ``step_ms``
+    includes its warm-up."""
+    import functools
     import shutil
 
     import torch
@@ -3889,16 +4002,16 @@ def phase_train_fsdp(device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
     arch = DIST_TRAIN[0]
     root = ROOT / "build" / "ckpt_train_fsdp"
     shutil.rmtree(root, ignore_errors=True)
+    tp_at = FSDP_CKPT_AT + TRAIN_TP_STEPS  # the tensor-parallel run's checkpoint
     # Every step lies in launch.train's 10-step warm-up, so its learning
     # rate is the one-device run's whatever --steps says.
     argv = ["--arch", arch, "--reduce", str(reduce), "--batch", str(batch), "--seq", str(seq),
-            "--ckpt-every", str(FSDP_CKPT_AT), "--log-every", "1", "--device", device]
-    dist = ["--mesh", "2x1", "--dist-backend", DIST_BACKEND]
+            "--log-every", "1", "--device", device]
     try:
         with _launch_depth(DIST_TRAIN_LAYERS):
             one_card = {}
             t0 = time.perf_counter()
-            single = {"losses": train_mod.main(argv + ["--steps", str(TRAIN_STEPS)],
+            single = {"losses": train_mod.main(argv + ["--steps", str(DIST_CHAIN_STEPS)],
                                                record=one_card)}
             single_s = time.perf_counter() - t0
             single["grad_norms"] = [r["grad_norm"] for r in one_card["steps"]]
@@ -3906,20 +4019,24 @@ def phase_train_fsdp(device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
             _free_card(device)
             first = {}
             t0 = time.perf_counter()
-            losses = train_mod.main(argv + dist + ["--steps", str(FSDP_STEPS), "--ckpt-dir",
-                                                   str(root / "a")], record=first)
+            losses = train_mod.main(
+                argv + ["--mesh", "2x1", "--dist-backend", DIST_BACKEND, "--steps",
+                        str(FSDP_STEPS), "--ckpt-every", str(FSDP_CKPT_AT), "--ckpt-dir",
+                        str(root / "a")], record=first)
             first_s = time.perf_counter() - t0
             os.makedirs(root / "b")
             shutil.copytree(root / "a" / f"step_{FSDP_CKPT_AT:08d}",
                             root / "b" / f"step_{FSDP_CKPT_AT:08d}")
-            resumed_rec = {}
+            train_mod._train_rank = functools.partial(_tp_seq_rank, DIST_TRAIN_LAYERS)
+            tp_rec = {}
             t0 = time.perf_counter()
-            resumed = train_mod.main(argv + dist + ["--steps", str(FSDP_CKPT_AT + 1),
-                                                    "--ckpt-dir", str(root / "b"), "--resume"],
-                                     record=resumed_rec)
-            resume_s = time.perf_counter() - t0
+            tp_losses = train_mod.main(
+                argv + ["--mesh", "1x2", "--dist-backend", DIST_BACKEND, "--steps", str(tp_at),
+                        "--ckpt-every", str(tp_at), "--ckpt-dir", str(root / "b"), "--resume"],
+                record=tp_rec)
+            tp_s = time.perf_counter() - t0
 
-        # Elastic restart: the resumed run's final checkpoint on one rank,
+        # Elastic restart: the tensor-parallel run's checkpoint on one rank,
         # one step on.
         t0 = time.perf_counter()
         cfg = _dist_cfg(reduce)
@@ -3929,128 +4046,111 @@ def phase_train_fsdp(device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
         _, sh = train_state_shardings(lm, None, one, sharding.train_rules(False))
         index = tree_map(lambda p, s: sharding.shard_index(s, p.shape, one, one.coords(0)),
                          specs, sh.params)
-        elastic_at = FSDP_CKPT_AT + 1
         state = CheckpointManager(str(root / "b")).restore(
-            TrainState(specs, specs, specs, 0), step=elastic_at, device=device,
+            TrainState(specs, specs, specs, 0), step=tp_at, device=device,
             shardings=TrainState(index, index, index, ()))
         elastic_step = int(state.step)
         lr = 3e-3  # launch.train's default
         opt = AdamW(AdamWConfig(lr=lr), cosine_schedule(lr, warmup_steps=10,
-                                                         total_steps=elastic_at + 1))
+                                                         total_steps=tp_at + 1))
         data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                           global_batch=batch))
-        b = {k: torch.as_tensor(v, device=device) for k, v in data.batch(elastic_at).items()}
+        b = {k: torch.as_tensor(v, device=device) for k, v in data.batch(tp_at).items()}
         elastic_loss = float(build_train_step(lm, opt, remat=True)(state, b)[1]["loss"])
         del state
         elastic_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # Steps 0 .. FSDP_STEPS - 1, the resumed step and the elastic one,
-    # against the one-device run's.
-    run = losses + resumed + [elastic_loss]
-    want = single["losses"][:len(run)]
-    rel = np.abs(np.subtract(run, want)) / np.abs(want)
+    # Step 0 (FSDP), steps 1 .. tp_at - 1 (TP) and the elastic one, against
+    # the one-device run's.
+    run = losses + tp_losses + [elastic_loss]
+    want = single["losses"]
+    rel = np.abs(np.subtract(run, want[:len(run)])) / np.abs(want[:len(run)])
     steps = first["steps"]
-    step_s = float(min(r["s"] for r in steps + resumed_rec["steps"]))  # each a run's first
     info = {"phase": "train_fsdp", "transport": first["transport"], "arch": arch,
             "reduce": reduce, "layers": cfg.n_layers, "batch": batch, "seq": seq,
-            "steps": FSDP_STEPS, "checkpoint_at": FSDP_CKPT_AT, "resumed_steps": len(resumed),
-            "params": first["n_params"], "losses": losses, "resumed_losses": resumed,
-            "single_card_losses": single["losses"], "loss_rel_diff": rel.tolist(),
+            "steps": FSDP_STEPS, "checkpoint_at": FSDP_CKPT_AT,
+            "chain": "2x1 FSDP step 0 -> 1x2 TP steps 1-2 (train_tp) -> elastic step 3",
+            "params": first["n_params"], "losses": losses, "chain_losses": run,
+            "single_card_losses": want, "loss_rel_diff": rel.tolist(),
             "single_card_grad_norms": single["grad_norms"],
             "rtol": [DIST_FIRST_RTOL, DIST_LATER_RTOL],
             "elastic": {"mesh": one.shape, "restored_step": elastic_step, "loss": elastic_loss,
                         "s": elastic_s},
-            "step_s": [r["s"] for r in steps + resumed_rec["steps"]], "step_ms": step_s * 1e3,
+            "step_s": [r["s"] for r in steps], "step_ms": steps[0]["s"] * 1e3,
             "single_card_step_ms": single["step_ms"], "single_card_run_s": single_s,
-            "tokens_per_s": batch * seq / step_s,
+            "tokens_per_s": batch * seq / steps[0]["s"],
             "comm_bytes_per_step": steps[-1]["comm_bytes"],
-            "first_run_s": first_s, "resume_run_s": resume_s,
+            "first_run_s": first_s, "tp_run_s": tp_s,
             "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in first["ranks"]],
             "launches": {k: sum(r["launches"][k] for r in first["ranks"])
                          for k in first["ranks"][0]["launches"]},
             "phase_s": time.perf_counter() - t_phase}
+    tp = _train_tp_line(tp_rec, tp_losses, want, tp_s, single["step_ms"], batch, seq, cfg,
+                        device)
     emit(info)
+    emit(tp)
     ok = (len(run) == len(want) and rel[0] <= DIST_FIRST_RTOL
-          and (rel[1:] <= DIST_LATER_RTOL).all() and elastic_step == elastic_at
-          and np.isfinite(run).all())
-    if device == "cuda":  # both ranks, every step of the first run
+          and (rel[1:] <= DIST_LATER_RTOL).all() and elastic_step == tp_at
+          and np.isfinite(run).all() and tp["ok"])
+    if device == "cuda":  # both ranks, every step of the FSDP run
         launches = {k: 2 * FSDP_STEPS * v for k, v in _train_launches(cfg, seq).items()}
         ok = ok and all(info["launches"][k] == v for k, v in launches.items())
     if not ok:
-        raise AssertionError(f"train_fsdp failed: {info}")
-    return info
+        raise AssertionError(f"train_fsdp / train_tp failed: {info} {tp}")
+    return {**info, "train_tp": tp}
 
 
-def phase_train_tp(fsdp: dict, device="cuda", reduce: int = 1, batch: int = DIST_TRAIN[1],
-                   seq: int = DIST_TRAIN[2]) -> dict:
-    """``launch.train.main --mesh 1x2 --dist-backend gloo``: train_fsdp's
-    model (qwen3-0.6b at full width with ``reduce`` 1, DIST_TRAIN_LAYERS
-    layers), batches and seed, TRAIN_TP_STEPS FSDP x TP steps (``data`` is
-    1: tensor parallelism alone) and a checkpoint at the last, gathered to
-    rank 0; then ``launch.train.main --resume`` from it on one device for
-    one step more. The losses against train_fsdp's one-device run
-    (``fsdp["single_card_losses"]``): step 1 within rtol 1e-5, later
-    1e-3. Step ms (the second step's), bytes a step per collective kind,
-    peak memory and launches a rank."""
-    import shutil
-
-    from repro_torch.launch import train as train_mod
-
-    t_phase = time.perf_counter()
-    _free_card(device)
-    cfg = _dist_cfg(reduce)
-    root = ROOT / "build" / "ckpt_train_tp"
-    shutil.rmtree(root, ignore_errors=True)
-    argv = ["--arch", DIST_TRAIN[0], "--reduce", str(reduce), "--batch", str(batch),
-            "--seq", str(seq), "--ckpt-every", str(TRAIN_TP_STEPS), "--log-every", "1",
-            "--device", device, "--ckpt-dir", str(root)]
-    try:
-        with _launch_depth(DIST_TRAIN_LAYERS):
-            first = {}
-            t0 = time.perf_counter()
-            losses = train_mod.main(argv + ["--mesh", "1x2", "--dist-backend", DIST_BACKEND,
-                                            "--steps", str(TRAIN_TP_STEPS)], record=first)
-            first_s = time.perf_counter() - t0
-            resumed_rec = {}
-            t0 = time.perf_counter()
-            resumed = train_mod.main(argv + ["--steps", str(TRAIN_TP_STEPS + 1), "--resume"],
-                                     record=resumed_rec)
-            resume_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    run = losses + resumed
-    want = fsdp["single_card_losses"][:len(run)]
-    rel = np.abs(np.subtract(run, want)) / np.abs(want)
-    steps = first["steps"]
-    ranks = first["ranks"]
+def _train_tp_line(rec: dict, losses: list, single: list, run_s: float, single_step_ms: float,
+                   batch: int, seq: int, cfg, device) -> dict:
+    """train_fsdp's tensor-parallel run (``rec``, from ``launch.train``'s
+    ``record``; ``losses`` from its checkpoint's step on) and the
+    ``act_seq`` steps of its ranks, against the one-device ``single``
+    losses; ``ok`` as `phase_train_fsdp` holds them."""
+    act = rec["act_seq"]
+    start = rec["steps"][0]["step"]
+    want = single[start:start + len(losses)]
+    rel = np.abs(np.subtract(losses, want)) / np.abs(want)
+    seq_want = single[:TRAIN_SEQ_STEPS]
+    seq_rel = np.abs(np.subtract(act["losses"], seq_want)) / np.abs(seq_want)
+    act_seq = {
+        "rules": "train_rules with act_seq on model", "steps": TRAIN_SEQ_STEPS,
+        "losses": act["losses"], "single_card_losses": seq_want,
+        "loss_rel_diff": seq_rel.tolist(), "grad_norms": [r["grad_norm"] for r in act["steps"]],
+        "step_s": [r["s"] for r in act["steps"]],
+        "step_ms": min(r["s"] for r in act["steps"][1:]) * 1e3,
+        "comm_bytes_per_step": act["steps"][-1]["comm_bytes"],
+        "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                         for r in act["with_by_rank"]],
+        "launches": {k: sum(r["launches"][k] for r in act["with_by_rank"])
+                     for k in act["with_by_rank"][0]["launches"]}}
+    steps = rec["steps"]
     info = {
-        "phase": "train_tp", "transport": first["transport"], "mesh": "1x2",
+        "phase": "train_tp", "transport": rec["transport"], "mesh": "1x2",
         "arch": DIST_TRAIN[0], "layers": cfg.n_layers, "batch": batch, "seq": seq,
-        "steps": TRAIN_TP_STEPS, "params": first["n_params"], "losses": losses,
-        "restored_step": resumed_rec["steps"][0]["step"] if resumed_rec["steps"] else None,
-        "restored_loss": resumed[0] if resumed else None,
-        "single_card_losses": want, "loss_rel_diff": rel.tolist(),
-        "rtol": [DIST_FIRST_RTOL, DIST_LATER_RTOL],
+        "steps": TRAIN_TP_STEPS, "resumed_from": f"train_fsdp's 2x1 checkpoint at {start}",
+        "params": rec["n_params"], "losses": losses, "single_card_losses": want,
+        "loss_rel_diff": rel.tolist(), "rtol": [DIST_FIRST_RTOL, DIST_LATER_RTOL],
         "step_s": [r["s"] for r in steps], "step_ms": min(r["s"] for r in steps[1:]) * 1e3,
-        "single_card_step_ms": fsdp["single_card_step_ms"],
-        "comm_bytes_per_step": steps[-1]["comm_bytes"],
-        "first_run_s": first_s, "resume_run_s": resume_s,
-        "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in ranks],
-        "rank_s": [r["s"] for r in ranks],
-        "launches": {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]},
-        "phase_s": time.perf_counter() - t_phase}
-    emit(info)
-    ok = (len(run) == TRAIN_TP_STEPS + 1 and np.isfinite(run).all()
-          and rel[0] <= DIST_FIRST_RTOL and (rel[1:] <= DIST_LATER_RTOL).all()
-          and info["restored_step"] == TRAIN_TP_STEPS)
-    if device == "cuda":  # both ranks, every step of the 1x2 run
-        want_l = {k: 2 * TRAIN_TP_STEPS * v for k, v in _train_launches(cfg, seq).items()}
-        ok = ok and all(info["launches"][k] == v for k, v in want_l.items())
-    if not ok:
-        raise AssertionError(f"train_tp failed: {info}")
-    return info
+        "single_card_step_ms": single_step_ms,
+        "comm_bytes_per_step": steps[-1]["comm_bytes"], "run_s": run_s,
+        "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                         for r in act["without_by_rank"]],
+        "rank_s": [r["s"] for r in rec["ranks"]],
+        "launches": {k: sum(r["launches"][k] for r in act["without_by_rank"])
+                     for k in act["without_by_rank"][0]["launches"]},
+        "act_seq": act_seq, "in_chain_of": "train_fsdp"}
+    ok = (len(losses) == TRAIN_TP_STEPS and np.isfinite(losses).all()
+          and (rel <= DIST_LATER_RTOL).all() and len(seq_rel) == TRAIN_SEQ_STEPS
+          and np.isfinite(act["losses"]).all() and seq_rel[0] <= DIST_FIRST_RTOL
+          and (seq_rel[1:] <= DIST_LATER_RTOL).all())
+    if device == "cuda":  # both ranks, every step
+        per = _train_launches(cfg, seq)
+        ok = ok and all(info["launches"][k] == 2 * TRAIN_TP_STEPS * v
+                        and act_seq["launches"][k] == 2 * TRAIN_SEQ_STEPS * v
+                        for k, v in per.items())
+    return {**info, "ok": bool(ok)}
 
 
 def _compressed_pp_rank(comm, arch: str, reduce: int, batch: int, seq: int,
@@ -4225,7 +4325,7 @@ def phase_train_compressed_pp(fsdp: dict, device="cuda", reduce: int = 1,
     info = {"phase": "train_compressed", "transport": transport,
             "arch": arch, "reduce": reduce, "batch": batch, "seq": seq,
             "steps": COMPRESSED_STEPS, "remat": True, "losses": r0["losses"],
-            "fsdp_losses": fsdp["losses"] + fsdp["resumed_losses"], "step_s": r0["step_s"],
+            "fsdp_losses": fsdp["losses"], "step_s": r0["step_s"],
             "step_ms": step_s * 1e3, "fsdp_step_ms": fsdp["step_ms"],
             "tokens_per_s": batch * seq / step_s,
             "single_card_first_loss": exact_loss, "first_loss_rel_diff": loss_rel,
@@ -4383,10 +4483,12 @@ def _tp_serve_rank(comm, inputs: dict) -> dict:
 
 def _tp_train_rank(comm, inputs: dict) -> dict:
     """DIST_PARITY_STEPS FSDP x TP steps of each arch of ``inputs`` (AdamW
-    as TRAIN_PARITY_ADAMW); the losses, and the gathered params on rank 0."""
+    as TRAIN_PARITY_ADAMW), then of each of TP_PARITY_SEQ_ARCHS under
+    `_act_seq_rules` (key ``arch + "+act_seq"``); the losses, the launches
+    of each run, and the gathered params on rank 0."""
     import torch
 
-    from repro_torch import configs
+    from repro_torch import configs, kernels
     from repro_torch.distributed import sharding
     from repro_torch.launch import serve
     from repro_torch.models import LM
@@ -4396,19 +4498,26 @@ def _tp_train_rank(comm, inputs: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for arch, inp in inputs.items():
+    runs = [(arch, None) for arch in inputs] + [(arch, _act_seq_rules())
+                                                for arch in TP_PARITY_SEQ_ARCHS]
+    for arch, rules in runs:
+        inp = inputs[arch]
         lm = LM(serve.reduce_config(configs.get_config(arch), 8))
         cfg = AdamWConfig(**TRAIN_PARITY_ADAMW)
         opt = AdamW(cfg, cosine_schedule(cfg.lr, warmup_steps=1, total_steps=DIST_PARITY_STEPS))
-        step, sh, _ = build_train_step(lm, opt, comm, remat=True)
+        step, sh, _ = build_train_step(lm, opt, comm, rules, remat=True)
         state = opt.init(sharding.shard_tree(_on(inp["params"], "cpu"), sh.params, comm.mesh,
                                              comm.coords, comm.device))
+        before = kernels.launch_counts()
         losses = []
         for b in inp["batches"]:
             state, metrics = step(state, b)
             losses.append(float(metrics["loss"]))
+        launches = {k: v - before[k] for k, v in kernels.launch_counts().items()}
         whole = gather_state(state, sh, comm)
-        out[arch] = {"losses": losses, "params": whole.params if whole is not None else None}
+        out[arch if rules is None else arch + "+act_seq"] = {
+            "losses": losses, "launches": launches,
+            "params": whole.params if whole is not None else None}
         del state, whole
     return out
 
@@ -4422,14 +4531,23 @@ def _compare_tp(serves: list, cpu_serves: list, trains: list, cpu_trains: list) 
         equal = all(bool((r[arch][0] == ctok).all()) for r in serves)
         out[f"serve_{arch}"] = {"tokens_equal": equal, "max_logit_diff": diff,
                                 "ok": ok and equal}
-    for arch in TP_PARITY_TRAIN_ARCHS:
+    runs = list(TP_PARITY_TRAIN_ARCHS) + [a + "+act_seq" for a in TP_PARITY_SEQ_ARCHS]
+    for arch in runs:
         got = [r[arch]["losses"] for r in trains]
         want = cpu_trains[0][arch]["losses"]
         rel = max(float(np.max(np.abs(np.subtract(g, want)) / np.abs(want))) for g in got)
         worst = _leaf_worst(trains[0][arch]["params"], cpu_trains[0][arch]["params"])
-        out[f"train_{arch}"] = {"losses": got[0], "cpu_losses": want, "max_loss_rel_diff": rel,
-                                "max_param_diff_over_tolerance": worst,
-                                "ok": rel <= TRAIN_PARITY_LOSS_RTOL and worst <= 1.0}
+        row = {"losses": got[0], "cpu_losses": want, "max_loss_rel_diff": rel,
+               "max_param_diff_over_tolerance": worst,
+               "launches_by_rank": [r[arch]["launches"] for r in trains],
+               "ok": rel <= TRAIN_PARITY_LOSS_RTOL and worst <= 1.0}
+        if arch.endswith("+act_seq"):  # against the same ranks' steps without it
+            plain = trains[0][arch.split("+")[0]]["losses"]
+            steps_rel = np.abs(np.subtract(got[0], plain)) / np.abs(plain)
+            row.update(without_act_seq_losses=plain, loss_rel_diff_to_without=steps_rel.tolist(),
+                       ok=row["ok"] and steps_rel[0] <= DIST_FIRST_RTOL
+                       and bool((steps_rel[1:] <= DIST_LATER_RTOL).all()))
+        out[f"train_{arch}"] = row
     return out
 
 
@@ -4755,7 +4873,8 @@ def main() -> int:
     phase_roofline(info, trains["train"], served)
     dist, parity_s = phase_rank_parity()
     dist["train_fsdp"] = phase_train_fsdp()
-    dist["train_tp"] = phase_train_tp(dist["train_fsdp"])
+    dist["train_tp"] = dist["train_fsdp"].pop("train_tp")
+    dist["train_tp_act_seq"] = dist["train_tp"]["act_seq"]
     dist["train_compressed_pp"] = phase_train_compressed_pp(dist["train_fsdp"])
     dist["serve_dp"] = phase_serve_dp(served)
     dist["serve_tp"] = phase_serve_tp()

@@ -12,8 +12,8 @@ itself, through `torch.distributed`:
   slice of the other axes gets its own), built once after
   ``init_process_group``. Its collectives take an axis name or a tuple of
   them: `all_reduce` (sum, max), `all_gather`, `reduce_scatter`,
-  `ring_permute`, `copy_to` and `gather` (to one rank). A collective
-  over axes of size 1 is the identity.
+  `ring_permute`, `copy_to`, `split` and `gather` (to one rank). A
+  collective over axes of size 1 is the identity.
 - Autograd: `all_gather`'s backward reduce-scatters the cotangent (each
   rank's is a partial sum, as for a gathered parameter), or with
   ``grad="slice"`` keeps this rank's piece of it (each rank's is whole,
@@ -25,8 +25,12 @@ itself, through `torch.distributed`:
   columns are split over the axis); `ring_permute`
   sends to ``(i + 1) % n`` and receives from ``(i - 1) % n``, and its
   backward sends the cotangent the other way, as jax transposes
-  ``ppermute``. `reduce_scatter` carries no gradient (it reduces
-  gradients).
+  ``ppermute``. `reduce_scatter`'s backward all-gathers the cotangent
+  (the conjugate of `all_gather`: Megatron's exit from a
+  sequence-parallel region, each rank's result being its piece of the
+  sum); `split`, the conjugate of ``all_gather(grad="slice")``, keeps
+  this rank's piece of a tensor every rank holds whole and all-gathers
+  the cotangent backward.
 - The transport is an argument, never chosen silently. ``"nccl"`` needs
   one card per rank and raises, naming ``"gloo"``, where there are fewer;
   NCCL refuses two ranks on one card. ``"gloo"`` moves CPU tensors; a
@@ -235,7 +239,15 @@ class Comm:
 
     def reduce_scatter(self, x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
         """The sum over the ranks of ``x``, split along ``dim``: this rank's
-        piece (no gradient)."""
+        piece. The backward all-gathers the cotangent."""
+        return _ReduceScatter.apply(x, self, axis, dim)
+
+    def split(self, x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+        """This rank's piece along ``dim`` of an ``x`` that every rank of
+        ``axis`` holds whole; the backward all-gathers the cotangent."""
+        return _Split.apply(x, self, axis, dim)
+
+    def _reduce_scatter(self, x, axis, dim):
         group, members = self._group(axis)
         if group is None:
             return x
@@ -322,7 +334,7 @@ class DryComm(Comm):
         self._tally("all_gather", out, out.numel() * out.element_size())
         return out
 
-    def reduce_scatter(self, x, axis, dim: int = 0):
+    def _reduce_scatter(self, x, axis, dim):
         _, members = self._group(axis)
         if len(members) == 1:
             return x
@@ -381,10 +393,34 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         comm, axis, dim = ctx.comm, ctx.axis, ctx.dim
         if ctx.grad == "sum":
-            return comm.reduce_scatter(g.contiguous(), axis, dim), None, None, None, None
+            return comm._reduce_scatter(g.contiguous(), axis, dim), None, None, None, None
         _, members = comm._group(axis)
         n = g.shape[dim] // len(members)
         return g.narrow(dim, members.index(comm.rank) * n, n), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim):
+        ctx.comm, ctx.axis, ctx.dim = comm, axis, dim
+        return comm._reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._all_gather(g.contiguous(), ctx.axis, ctx.dim), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim):
+        ctx.comm, ctx.axis, ctx.dim = comm, axis, dim
+        _, members = comm._group(axis)
+        n = x.shape[dim] // len(members)
+        return x.narrow(dim, members.index(comm.rank) * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._all_gather(g.contiguous(), ctx.axis, ctx.dim), None, None, None
 
 
 class _RingPermute(torch.autograd.Function):

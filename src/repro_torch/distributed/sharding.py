@@ -29,13 +29,19 @@ tells block code whether a ``model`` shard holds whole heads.
 
 ``activation_ctx`` / ``constrain`` keep the reference's names. In the
 reference the context is (mesh, rules) and ``constrain`` a sharding
-constraint for GSPMD; here a rank computes on its local tensors, so
-``constrain`` is a no-op, and the context is (comm, rules): the rank's
+constraint for GSPMD; here a rank computes on its local tensors, and the
+context is (comm, rules): the rank's
 `repro_torch.distributed.comm.Comm`, which carries the mesh. Model code
 reads it where a function of the global batch needs the batch axes
 (`models.blocks.moe_apply`'s groups, `models.lm.LM.loss`'s count), and
 `repro_torch.distributed.tensor_parallel` where ``model`` splits the
-parameters.
+parameters. ``constrain`` is a no-op: a tensor is already laid out as
+its rank holds it. The one layout it would change, the residual
+stream's ``("batch", "act_seq", "act_embed")`` under rules that map
+``act_seq`` to ``model`` (Megatron-style sequence parallelism), is made
+where the stream is made: `models.lm.LM` takes this rank's piece of the
+sequence at the embedding when `seq_split` says so, and the blocks
+gather the whole sequence where they mix positions.
 """
 
 from __future__ import annotations
@@ -71,6 +77,23 @@ def constrain(x, logical: Tuple[Optional[str], ...]):
     """The reference's sharding constraint: a rank's tensor is already its
     shard, so this returns ``x``."""
     return x
+
+
+def seq_split(seq_len: int) -> int:
+    """Into how many pieces this rank's residual stream of ``seq_len``
+    positions is cut along the sequence: the ``model`` axis's size where
+    the innermost `activation_ctx`'s rules map ``act_seq`` to it and it
+    divides ``seq_len`` (`spec_for`'s fallback: decode's one position
+    never splits), else 1."""
+    ctx = current()
+    if ctx is None:
+        return 1
+    comm, rules = ctx
+    spec = spec_for((None, "act_seq"), (1, seq_len), comm.mesh, rules)
+    axes = tuple(a for _, ax in sharded_dim(spec, comm.mesh) for a in ax)
+    if axes and axes != ("model",):
+        raise NotImplementedError(f"act_seq over {axes}: the sequence splits over model only")
+    return comm.mesh.shape["model"] if axes else 1
 
 
 def train_rules(multi_pod: bool) -> Rules:

@@ -30,10 +30,10 @@ Per cell, `lower_cell` records the reference's keys:
   None (no compiler, no HLO).
 - ``lower_s``: the dry pass's seconds.
 - ``collectives``: `rooftool.comm_collectives` of the dry `Comm`'s output
-  bytes, the reference's convention.
-- ``act_seq``: on train cells whose rules shard the activations' sequence
-  over ``model`` (`_train_rules_for`): the port does not yet
-  (`repro_torch.distributed.sharding.constrain` is a no-op).
+  bytes, the reference's convention. On the train cells whose rules map
+  ``act_seq`` to ``model`` (`_train_rules_for`) the residual stream is
+  split along the sequence (`repro_torch.models.lm`), and the model
+  axis's traffic is all-gathers and reduce-scatters.
 
 Dtypes are the reference's, so the bytes compare: bf16 parameters, the
 optimizer's float32 moments, int32 tokens, bf16 embeddings and images,
@@ -72,9 +72,6 @@ from ..optim import AdamW, AdamWConfig, TrainState
 from ..train import steps as train_steps
 from . import rooftool
 from .mesh import make_production_mesh
-
-ACT_SEQ_NOTE = "requested, not sharded in the port"
-
 
 # --------------------------------------------------------------------------
 # input specs (meta tensors; no allocation)
@@ -301,8 +298,6 @@ def lower_cell(
         "collectives": rooftool.comm_collectives(comm.out_bytes, sum(comm.calls.values())),
         "hlo_chars": None,
     }
-    if rules.get("act_seq"):
-        rec["act_seq"] = ACT_SEQ_NOTE
     return rec
 
 

@@ -32,6 +32,20 @@ local); the RG-LRU and RWKV-6 kernels on the local channels and heads.
 Local counts are read from the shards' shapes. A decode cache whose
 sequence is split over ``model`` (`SeqShard`) is merged across ranks by
 the decode kernel's log-sum-exp, never gathered.
+
+Under rules that map ``act_seq`` to ``model`` (training;
+`sharding.seq_split`), `apply_block_seq` may get this rank's piece of
+the sequence, (B, S / M, D), which it tells from the whole ``positions``.
+The norms and residual adds run on the piece; every mixing layer and
+MLP sees the whole sequence. Attention, the FFN, the RG-LRU block and
+RWKV-6's mixes gather it as they enter their column products and
+reduce-scatter it as their row products leave
+(`tensor_parallel.TensorParallel.seq`; RWKV-6's token shifts then cross
+the pieces' boundaries on the whole sequence, and its mix vectors and
+decay LoRA, which meet it before the columns, go in by `copy`); the MoE
+(whose groups, capacity and drops are the whole batch's) and any
+sublayer whose leaves ``model`` does not split run whole on every rank
+between `_per_piece`'s gather and split.
 """
 
 from __future__ import annotations
@@ -231,10 +245,22 @@ def _kv_of_heads(h0: int, nq: int, group: int, kv0: int):
     return [(h0 + i) // group - kv0 for i in range(nq)]
 
 
-def _attn_tp(cfg, p):
+def _attn_tp(cfg, p, seq: bool = False):
     """The ``model`` axis where it splits the attention's projections."""
-    return (tensor_parallel.split(p["wo"], cfg.q_dim, 0)
-            or tensor_parallel.split(p["wk"], cfg.kv_dim))
+    return (tensor_parallel.split(p["wo"], cfg.q_dim, 0, seq)
+            or tensor_parallel.split(p["wk"], cfg.kv_dim, seq=seq))
+
+
+def _per_piece(fn, cfg, p, x, *args):
+    """``fn``, a sublayer with its one-sequence code, on the whole sequence
+    of this rank's piece ``x`` (every rank computes it whole), and this
+    rank's piece of its output; the rest of a tuple (cache entries) as
+    ``fn`` returns it."""
+    sp = tensor_parallel.current(seq=True)
+    out = fn(cfg, p, sp.whole(x), *args)
+    if isinstance(out, tuple):
+        return (sp.piece(out[0]),) + out[1:]
+    return sp.piece(out)
 
 
 def _tp_weights(tp, cfg, p, kv: bool = True):
@@ -254,7 +280,9 @@ def _tp_weights(tp, cfg, p, kv: bool = True):
 
 def _attn_seq_tp(tp, cfg, p, x, positions, kind, img):
     """`attn_seq` on this rank's query heads; K/V as the cache holds them
-    (its KV heads where they split, else all)."""
+    (its KV heads where they split, else all). With ``tp.seq`` the cross
+    gate meets this rank's piece of the output, and its gradient is
+    summed over ``model``."""
     hd, eps = cfg.head_dim, cfg.norm_eps
     wq, c0, wk, k0, wv = _tp_weights(tp, cfg, p)
     x = tp.enter(x)
@@ -263,9 +291,9 @@ def _attn_seq_tp(tp, cfg, p, x, positions, kind, img):
     k = _split_heads(src @ wk, wk.shape[-1] // hd, hd)
     v = _split_heads(src @ wv, wv.shape[-1] // hd, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, tp.enter(p["q_norm"]), eps)
+        q = rms_norm(q, tp.copy(p["q_norm"]), eps)
         if kind != "cross":
-            k = rms_norm(k, tp.enter(p["k_norm"]), eps)
+            k = rms_norm(k, tp.copy(p["k_norm"]), eps)
     if kind != "cross":
         q = rope(q, positions[:, None, :], cfg.rope_theta)
         k = rope(k, positions[:, None, :], cfg.rope_theta)
@@ -282,7 +310,9 @@ def _attn_seq_tp(tp, cfg, p, x, positions, kind, img):
     if o.shape[-1] != rows:  # every head computed: this rank's rows of wo
         o = tp.own(o, rows)
     out = tp.row(o, p["wo"])
-    return (torch.tanh(p["gate"]) * out if kind == "cross" else out), (k, v)
+    if kind == "cross":
+        out = torch.tanh(tp.copy(p["gate"]) if tp.seq else p["gate"]) * out
+    return out, (k, v)
 
 
 def _attn_decode_tp(tp, cfg, p, x, positions, kind, cache, lengths, seq: Optional[SeqShard]):
@@ -337,13 +367,16 @@ def _attn_decode_tp(tp, cfg, p, x, positions, kind, cache, lengths, seq: Optiona
     return (torch.tanh(p["gate"]) * out if kind == "cross" else out), cache
 
 
-def attn_seq(cfg, p, x, positions, kind, img=None):
+def attn_seq(cfg, p, x, positions, kind, img=None, seq: bool = False):
     """Full-sequence attention sublayer. Returns (out, (k, v)); for cross,
     K/V are the image tokens' (no rope on either side, q_norm only) and the
-    output is scaled by tanh(gate)."""
-    tp = _attn_tp(cfg, p)
+    output is scaled by tanh(gate). ``seq``: ``x`` is this rank's piece of
+    the sequence (as is ``out``)."""
+    tp = _attn_tp(cfg, p, seq)
     if tp is not None:
         return _attn_seq_tp(tp, cfg, p, x, positions, kind, img)
+    if seq:
+        return _per_piece(attn_seq, cfg, p, x, positions, kind, img)
     if kind == "cross":
         q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
         if cfg.qk_norm:
@@ -412,11 +445,13 @@ def _ring(k: torch.Tensor, window: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def ffn_apply(cfg, p, x):
+def ffn_apply(cfg, p, x, seq: bool = False):
     """The FFN; ``w1/w3`` column-parallel and ``w2`` row-parallel where
-    ``model`` splits d_ff."""
+    ``model`` splits d_ff. ``seq``: see `attn_seq`."""
     act = activation_fn(cfg.activation)
-    tp = tensor_parallel.split(p["w1"], cfg.d_ff)
+    tp = tensor_parallel.split(p["w1"], cfg.d_ff, seq=seq)
+    if tp is None and seq:
+        return _per_piece(ffn_apply, cfg, p, x)
     if tp is not None:
         x = tp.enter(x)
     h = act(x @ p["w1"])
@@ -535,7 +570,9 @@ def moe_apply(cfg, p, x):
     ranks, so the rank all-gathers the tokens over the batch axes, runs the
     global dispatch and keeps its own rows (the reference runs it on the
     global array). Taking G from the local token count instead would
-    change the groups, the capacity and the drops.
+    change the groups, the capacity and the drops (and so would a rank's
+    piece of the sequence: `apply_block_seq` gathers it whole first, as
+    the reference keeps the MoE's tokens whole along the sequence).
     """
     B, S, D = x.shape
     T_local = B * S
@@ -554,7 +591,7 @@ def moe_apply(cfg, p, x):
     tp = tensor_parallel.split(p["we1"], cfg.n_experts, 0)
     n_local = p["we1"].shape[0]
     if tp is not None:
-        mine = tp.enter(buf).narrow(1, tp.index * n_local, n_local)
+        mine = tp.copy(buf).narrow(1, tp.index * n_local, n_local)
         out_buf = tp.gather(_moe_experts(cfg, p, mine), 1)
     else:
         out_buf = _moe_experts(cfg, p, buf)
@@ -591,18 +628,21 @@ def _conv(p, hist, n: int, width: int):
     return sum(hist[:, i : i + n] * p["conv"][i] for i in range(width))
 
 
-def _rec_tp(cfg, p):
+def _rec_tp(cfg, p, seq: bool = False):
     """The ``model`` axis where it splits the rnn channels, else None."""
-    return tensor_parallel.split(p["wx"], cfg.rnn_width or cfg.d_model)
+    return tensor_parallel.split(p["wx"], cfg.rnn_width or cfg.d_model, seq=seq)
 
 
-def rec_seq(cfg, p, x):
+def rec_seq(cfg, p, x, seq: bool = False):
     """(B, S, D) -> (B, S, D) + cache entry {h, conv} (this rank's rnn
-    channels where ``model`` splits them)."""
-    B, S, _ = x.shape
-    tp = _rec_tp(cfg, p)
+    channels where ``model`` splits them). ``seq``: see `attn_seq`; the
+    conv and the scan run on the whole sequence."""
+    tp = _rec_tp(cfg, p, seq)
+    if tp is None and seq:
+        return _per_piece(rec_seq, cfg, p, x)
     if tp is not None:
         x = tp.enter(x)
+    B, S, _ = x.shape
     gate = _gelu(x @ p["wgate"])  # (B, S, R)
     xr = x @ p["wx"]  # (B, S, R)
     CW = cfg.conv_width
@@ -643,8 +683,8 @@ def _shift(x, last=None):
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def _rwkv_mix(p, x, xs):
-    mu = p["mu"]  # (5, D)
+def _rwkv_mix(mu, x, xs):
+    """The r, k, v, g, w token mixes of ``x`` and its shift by ``mu`` (5, D)."""
     return tuple(x + (xs - x) * torch.sigmoid(mu[i]) for i in range(5))  # r,k,v,g,w
 
 
@@ -666,18 +706,27 @@ def _rwkv_time_mix_tp(tp, cfg, p, x, last, s0, state_out):
     """`rwkv_time_mix` on this rank's heads: the projections, the decay's
     ``wB`` and ``w0``, ``u``, the scan and the group norm on them, ``wo``
     row-parallel; where the shards fall inside heads, the split leaves are
-    gathered and every head computed (the state then whole)."""
-    B, S, D = x.shape
+    gathered and every head computed (the state then whole). With
+    ``tp.seq`` the whole sequence enters once, and the mix vectors and the
+    decay's ``wA``, which meet it before the column products, go in by
+    `copy`; where the shards fall inside heads it runs whole on every rank
+    (`_per_piece`)."""
     N = cfg.rwkv_head_dim
-    xr, xk, xv, xg, xw = _rwkv_mix(p, x, _shift(x, last))
     cols = p["wr"].shape[-1]
     split = sharding.split_on_heads(cols, N)
+    if tp.seq and not split:
+        return _per_piece(rwkv_time_mix, cfg, p, x)
+    mu, wA = p["mu"], p["wA"]
+    if tp.seq:
+        x, mu, wA = tp.enter(x), tp.copy(mu), tp.copy(wA)
+    B, S, D = x.shape
+    xr, xk, xv, xg, xw = _rwkv_mix(mu, x, _shift(x, last))
     if split:
         q = {k: p[k] for k in ("wr", "wk_", "wv_", "wg", "wB", "w0", "ln_x", "u")}
     else:
         q = {k: tp.gather(p[k], -1, grad="sum") for k in ("wr", "wk_", "wv_", "wg", "wB",
                                                             "w0", "ln_x")}
-        q["u"] = tp.enter(p["u"])
+        q["u"] = tp.copy(p["u"])
     H = q["wr"].shape[-1] // N
 
     def heads(t):
@@ -687,7 +736,7 @@ def _rwkv_time_mix_tp(tp, cfg, p, x, last, s0, state_out):
     k = heads(tp.column(xk, q["wk_"]))
     v = heads(tp.column(xv, q["wv_"]))
     g = F.silu(tp.column(xg, q["wg"]))
-    lora = torch.tanh(xw.float() @ p["wA"].float())
+    lora = torch.tanh(xw.float() @ wA.float())
     w = heads(torch.exp(-torch.exp(q["w0"].float() + tp.column(lora, q["wB"].float()))))
     o, s_final = rwkv_ops.rwkv6_scan(r, k, v, w, q["u"], s0, state_out=state_out)
     o = _group_norm(o.transpose(1, 2).reshape(B, S, H * N), q["ln_x"], RWKV_GN_EPS, H)
@@ -697,16 +746,19 @@ def _rwkv_time_mix_tp(tp, cfg, p, x, last, s0, state_out):
     return tp.row(y, p["wo"]), s_final
 
 
-def rwkv_time_mix(cfg, p, x, last=None, s0=None, state_out=None):
+def rwkv_time_mix(cfg, p, x, last=None, s0=None, state_out=None, seq: bool = False):
     """Time mix over (B, S, D) from shift ``last`` and state ``s0`` (zeros
     when None). Returns (out, final state); with ``state_out`` the final
-    state is written there (decode passes its cache's state as both)."""
+    state is written there (decode passes its cache's state as both).
+    ``seq``: see `attn_seq`."""
     B, S, D = x.shape
-    tp = tensor_parallel.split(p["wr"], D)
+    tp = tensor_parallel.split(p["wr"], D, seq=seq)
     if tp is not None:
         return _rwkv_time_mix_tp(tp, cfg, p, x, last, s0, state_out)
+    if seq:
+        return _per_piece(rwkv_time_mix, cfg, p, x)
     H, N = cfg.n_heads, cfg.rwkv_head_dim
-    xr, xk, xv, xg, xw = _rwkv_mix(p, x, _shift(x, last))
+    xr, xk, xv, xg, xw = _rwkv_mix(p["mu"], x, _shift(x, last))
 
     def heads(t):
         return t.reshape(B, S, H, N).transpose(1, 2)  # (B, H, S, N), a view
@@ -719,21 +771,34 @@ def rwkv_time_mix(cfg, p, x, last=None, s0=None, state_out=None):
     return (o * g) @ p["wo"], s_final
 
 
-def rwkv_channel_mix(cfg, p, x, last=None):
+def rwkv_channel_mix(cfg, p, x, last=None, seq: bool = False):
     """Channel mix; where ``model`` splits them, ``wc1`` column-parallel,
     ``wc2`` row-parallel, and the receptance's columns (``wcr``)
-    all-gathered before they gate the sum."""
-    xs = _shift(x, last)
+    all-gathered before they gate the sum. ``seq``: see `attn_seq`; the
+    whole sequence enters once, ``mu_c`` goes in by `copy`, and the
+    receptance, whole, is narrowed to this rank's piece (each rank's
+    cotangent of it then holds that piece alone: the gather sums them)."""
+    tk = tensor_parallel.split(p["wc1"], cfg.d_ff, seq=seq)
+    tr = tensor_parallel.split(p["wcr"], x.shape[-1], seq=seq)
+    if seq and (tk is None or tr is None):
+        return _per_piece(rwkv_channel_mix, cfg, p, x)
     mu = p["mu_c"]
+    if seq:
+        x, mu = tk.enter(x), tk.copy(mu)
+    xs = _shift(x, last)
     xk = x + (xs - x) * torch.sigmoid(mu[0])
     xr = x + (xs - x) * torch.sigmoid(mu[1])
-    tp = tensor_parallel.split(p["wc1"], cfg.d_ff)
-    if tp is not None:
-        kv = tp.row(torch.square(torch.relu(tp.column(xk, p["wc1"]))), p["wc2"])
+    if tk is not None:
+        kv = tk.row(torch.square(torch.relu(tk.column(xk, p["wc1"]))), p["wc2"])
     else:
         kv = torch.square(torch.relu(xk @ p["wc1"])) @ p["wc2"]
-    tp = tensor_parallel.split(p["wcr"], x.shape[-1])
-    r = tp.gather(tp.column(xr, p["wcr"]), -1) if tp is not None else xr @ p["wcr"]
+    if tr is None:
+        r = xr @ p["wcr"]
+    elif seq:
+        r = tr.gather(tr.column(xr, p["wcr"]), -1, grad="sum")
+        r = r.narrow(1, tr.index * kv.shape[1], kv.shape[1])
+    else:
+        r = tr.gather(tr.column(xr, p["wcr"]), -1)
     return torch.sigmoid(r) * kv
 
 
@@ -742,36 +807,41 @@ def rwkv_channel_mix(cfg, p, x, last=None):
 # --------------------------------------------------------------------------
 
 
-def _mlp(kind, cfg, p, x):
-    return moe_apply(cfg, p["moe"], x) if kind == "moe" else ffn_apply(cfg, p["ffn"], x)
+def _mlp(kind, cfg, p, x, seq: bool = False):
+    if kind == "moe":
+        return _per_piece(moe_apply, cfg, p["moe"], x) if seq else moe_apply(cfg, p["moe"], x)
+    return ffn_apply(cfg, p["ffn"], x, seq)
 
 
 def apply_block_seq(kind, cfg, p, x, positions, img=None):
     """Full-sequence block. Returns (y, cache entry at the prompt's length),
     with the entries of ``cache_spec(kind)`` (K/V, for local_attn in the
     ring layout; for cross the image K/V). ``img`` (B, n_img, D) is read
-    by cross blocks only."""
+    by cross blocks only. Where ``x`` is this rank's piece of the sequence
+    whose ``positions`` (B, S) it gets (`sharding.seq_split`), so is ``y``,
+    and the entry, which no cache then takes, is not the prompt's."""
+    seq = x.shape[1] < positions.shape[1]
     if kind == "rec":
         xn = rms_norm(x, p["norm_mix"], cfg.norm_eps)
-        a, entry = rec_seq(cfg, p["rec"], xn)
+        a, entry = rec_seq(cfg, p["rec"], xn, seq)
         x = x + a
         xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
-        return x + ffn_apply(cfg, p["ffn"], xn), entry
+        return x + ffn_apply(cfg, p["ffn"], xn, seq), entry
     if kind == "rwkv":
         pr = p["rwkv"]
         xn = rms_norm(x, p["norm_mix"], cfg.norm_eps)
-        a, s_final = rwkv_time_mix(cfg, pr, xn)
+        a, s_final = rwkv_time_mix(cfg, pr, xn, seq=seq)
         x = x + a
         xn2 = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
-        x = x + rwkv_channel_mix(cfg, pr, xn2)
+        x = x + rwkv_channel_mix(cfg, pr, xn2, seq=seq)
         return x, {"S": s_final, "shift": xn[:, -1], "shift_c": xn2[:, -1]}
     if kind not in ("dense", "local_attn", "cross", "moe"):
         raise ValueError(kind)
     xn = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    a, (k, v) = attn_seq(cfg, p["attn"], xn, positions, kind, img)
+    a, (k, v) = attn_seq(cfg, p["attn"], xn, positions, kind, img, seq)
     x = x + a
     xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
-    x = x + _mlp(kind, cfg, p, xn)
+    x = x + _mlp(kind, cfg, p, xn, seq)
     if kind == "local_attn":
         k, v = _ring(k, cfg.local_window), _ring(v, cfg.local_window)
     return x, {"k": k, "v": v}

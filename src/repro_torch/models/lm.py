@@ -36,7 +36,7 @@ With ``remat`` each superblock runs under
 input is kept, and the backward recomputes it (the reference's
 ``jax.checkpoint(nothing_saveable)`` around its scan body); the remainder
 layers run outside it, as in the reference. Sharding constraints have no
-counterpart: a rank computes on its own rows. Under
+counterpart but one: a rank computes on its own rows. Under
 `repro_torch.distributed.sharding.activation_ctx` (a rank of a mesh),
 ``loss`` divides the rank's masked CE sum by the count over the global
 batch (all-reduced over the batch axes), so the ranks' losses add up to
@@ -52,6 +52,17 @@ vocab-parallel cross-entropy, and ``init_cache`` allocates this rank's
 shard of the cache (the sequence of a K/V cache split over ``model``
 where its KV heads are not: `blocks.SeqShard`; ``decode_step`` then takes
 ``s_max`` to place it).
+
+The one constraint that changes what a rank holds is the reference's
+``("batch", "act_seq", "act_embed")`` on the residual stream: under rules
+that map ``act_seq`` to ``model`` and a sequence that the axis's size M
+divides (`sharding.seq_split`), `hidden_states` keeps only this rank's
+piece (B, S / M, D) of the stream from the embedding to the final norm
+(Megatron-style sequence parallelism: ``remat`` then saves a piece per
+superblock), and gathers the normed stream whole once for the logits.
+The positions stay the whole sequence's, which tells the blocks that
+they have a piece. `prefill` keeps the stream whole, as the reference
+constrains none of it, and decode's one position never splits.
 """
 
 from __future__ import annotations
@@ -72,6 +83,10 @@ from .layers import Param, init_params, rms_norm, stack_specs, tree_map
 @dataclasses.dataclass
 class LM:
     cfg: ArchConfig
+
+    # The leaves that meet the residual stream itself: under act_seq a
+    # rank's gradient of each is the part of its piece of the sequence.
+    STREAM_NORMS = ("norm_attn", "norm_ffn", "norm_mix", "final_norm")
 
     # ------------------------------------------------------------- params
 
@@ -98,14 +113,22 @@ class LM:
 
     # ------------------------------------------------------------- forward
 
-    def _embed(self, params, batch):
+    def seq_len(self, batch) -> int:
+        """The length of the batch's sequences."""
+        return batch["embeds" if self.cfg.embed_inputs else "tokens"].shape[1]
+
+    def _embed(self, params, batch, sp=None):
+        """The stream's input (B, S, D); with ``sp`` (a `TensorParallel`
+        with ``seq``) this rank's piece of its sequence."""
         if self.cfg.embed_inputs:
-            return batch["embeds"]  # (B, S, D) frontend stub
-        table = params["embed"]
-        tp = tensor_parallel.split(table, self.cfg.vocab_size, 0)
-        if tp is not None:
-            return tp.lookup(table, batch["tokens"])
-        return table[batch["tokens"]]
+            x = batch["embeds"]  # (B, S, D) frontend stub
+        else:
+            table = params["embed"]
+            tp = tensor_parallel.split(table, self.cfg.vocab_size, 0, seq=sp is not None)
+            if tp is not None:
+                return tp.lookup(table, batch["tokens"])
+            x = table[batch["tokens"]]
+        return x if sp is None else sp.piece(x)
 
     def _logits(self, params, x):
         """Float32 logits: this rank's vocab columns where ``model`` splits
@@ -139,11 +162,15 @@ class LM:
         return x
 
     def hidden_states(self, params, batch, remat: bool = False):
-        """(B, S) tokens (+ images) -> (B, S, D) after the final norm."""
+        """(B, S) tokens (+ images) -> (B, S, D) after the final norm (the
+        stream a piece of the sequence on each rank between the embedding
+        and the gather after the norm, where `sharding.seq_split` says)."""
         cfg = self.cfg
-        x = self._embed(params, batch)
+        S = self.seq_len(batch)
+        sp = tensor_parallel.current(seq=True) if sharding.seq_split(S) > 1 else None
+        x = self._embed(params, batch, sp)
         img = self._images(batch)
-        B, S = x.shape[:2]
+        B = x.shape[0]
         positions = torch.arange(S, device=x.device).expand(B, S)
         for layer_p in self._layers(params):
             if remat:
@@ -152,7 +179,11 @@ class LM:
                 x = self._superblock(x, layer_p, positions, img)
         for j, kind in enumerate(cfg.remainder):
             x, _ = blocks.apply_block_seq(kind, cfg, params[f"rem{j}_{kind}"], x, positions, img)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        # Each rank's cotangent of the whole is whole (the logits' column
+        # product sums it over model, or each rank computes the same
+        # loss): the gather's backward keeps this rank's piece.
+        return x if sp is None else sp.whole(x)
 
     def forward(self, params, batch, remat: bool = False):
         """(B, S) tokens (+ images) -> (B, S, V) float32 logits."""

@@ -27,7 +27,10 @@ counterpart of the reference's ``mesh``):
   axes a leaf is not sharded on, e.g. ``pod``). A leaf replicated over
   ``model`` gets no sync there: its gradient is the same on every rank
   of the axis (the blocks sum the partial ones of such leaves that meet
-  model-local activations);
+  model-local activations), but for the residual stream's norms
+  (`LM.STREAM_NORMS`) where the stream was split along the sequence
+  (rules that map ``act_seq`` to ``model``, `shd.seq_split`): each rank's
+  is the part of its piece, and the step sums them over ``model``, once;
 - optimizer: the global norm from the shards' sums of squares, each
   all-reduced over the axes its leaf is split on; AdamW elementwise on
   the shards.
@@ -70,6 +73,12 @@ def loss_and_grads(lm: LM, params, batch, *, remat: bool = True):
     return loss.detach().float(), tree_map(lambda t: grads[id(t)], live)
 
 
+def _stream_norms(tree):
+    """``tree``'s structure, True at the residual stream's norms."""
+    return {k: _stream_norms(v) if isinstance(v, dict) else k in LM.STREAM_NORMS
+            for k, v in tree.items()}
+
+
 def param_shardings(lm: LM, mesh, rules):
     """Spec tree of the parameters (from their `Param` specs: nothing is
     allocated)."""
@@ -103,18 +112,21 @@ def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: 
     specs = state_shardings.params
     baxes = shd.batch_axes(mesh, rules)
 
-    def sync(g, spec):
+    norms = _stream_norms(specs)
+
+    def sync(g, spec, partial):
         """The gradient of this rank's ``model`` shard summed over the batch
         ranks, reduced to this rank's shard: reduce-scatter over the
         ``data``-like axes a dim is split on, all-reduce over the other
-        batch axes; nothing over ``model``."""
+        batch axes; over ``model`` only where it is ``partial``."""
         done = ()
         for dim, axes in shd.sharded_dim(spec, mesh):
             if "model" not in axes:
                 g = comm.reduce_scatter(g, axes, dim)
                 done += axes
         rest = tuple(a for a in baxes if a not in done)
-        return comm.all_reduce(g, rest) if rest else g
+        g = comm.all_reduce(g, rest) if rest else g
+        return comm.all_reduce(g, "model") if partial else g
 
     def global_norm(grads):
         """sqrt of the leaves' sums of squares, each all-reduced over the
@@ -142,6 +154,7 @@ def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: 
                         state.params, specs)
         loss, grads = 0.0, None
         with shd.activation_ctx(comm, rules):
+            seq_split = shd.seq_split(lm.seq_len(batch)) > 1
             for i in range(grad_accum):
                 l, g = loss_and_grads(lm, full, micro_batch(batch, i), remat=remat)
                 loss = loss + l
@@ -152,7 +165,8 @@ def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: 
             n = torch.tensor(float(grad_accum), device=comm.device)
             loss = loss / n
             grads = tree_map(lambda g: g / n, grads)
-        grads = tree_map(lambda g, spec: sync(g.float(), spec), grads, specs)
+        grads = tree_map(lambda g, spec, norm: sync(g.float(), spec, norm and seq_split),
+                         grads, specs, norms)
         loss = comm.all_reduce(loss, baxes)  # each rank's share of the global mean
         gnorm = global_norm(grads)
         new_state = optimizer.apply(state, grads, gnorm=gnorm)

@@ -15,6 +15,10 @@
 - Two points: on reduced qwen3-0.6b (dense) and recurrentgemma-2b
   (recurrent), ``roofline_cell``'s total FLOPs and collective bytes equal
   the full-depth ``lower_cell``'s (integers, exact).
+- ``act_seq``: the same small-mesh train cell with the residual stream
+  split along the sequence over ``model`` has no ``act_seq`` key,
+  all-gathers and reduce-scatters in place of the stream's all-reduces,
+  the same FLOPs and fewer bytes.
 - Work conservation: 8 ranks of ``2x4`` count the FLOPs of one ``1x1``
   rank plus the one product the model axis replicates, named: K and V,
   whose 2 KV heads do not split 4 ways, are projected whole on every
@@ -61,6 +65,7 @@ from repro.optim import AdamW as RefAdamW  # noqa: E402
 from repro.optim import AdamWConfig as RefAdamWConfig  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import SHAPES, ShapeSpec  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.distributed.comm import run_ranks  # noqa: E402
 from repro_torch.kernels import shape_only  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -209,6 +214,27 @@ def test_small_mesh_dryrun():
     # its frequencies per device).
     x = layers.rope(torch.ones(1, 1, 3, 16), torch.arange(3)[None, None], 1e4)
     assert type(x) is torch.Tensor and float(x.sum()) != 0.0
+
+
+def test_act_seq_train_cell_splits_the_stream():
+    """A small-mesh train cell under rules that map ``act_seq`` to
+    ``model``, against the same cell without: the record has no
+    ``act_seq`` key; the residual stream's all-reduces over ``model`` give
+    way to all-gathers and reduce-scatters; the FLOPs are the same and
+    the bytes the ops touch fewer."""
+    mesh = make_mesh((2, 4), ("data", "model"))
+    recs = {}
+    for act_seq in (None, ("model",)):
+        rules = {**shd.train_rules(False), "act_seq": act_seq}
+        recs[act_seq] = dryrun.lower_cell(_tiny(), SMALL[0], mesh, multi_pod=False,
+                                          train_override=(rules, 1))
+    whole, split = recs[None], recs[("model",)]
+    assert "act_seq" not in whole and "act_seq" not in split
+    c0, c1 = whole["collectives"], split["collectives"]
+    assert c1["all-reduce"] * 5 < c0["all-reduce"]
+    assert c1["all-gather"] > c0["all-gather"] and c1["reduce-scatter"] > c0["reduce-scatter"]
+    assert split["flops_dev"] == whole["flops_dev"]
+    assert split["bytes_dev"] < whole["bytes_dev"]
 
 
 @pytest.mark.parametrize("arch,layers,kind", [("qwen3-0.6b", 3, "train"),

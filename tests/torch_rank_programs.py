@@ -7,6 +7,7 @@ return against the reference. Inputs arrive as numpy arrays; `run_jobs`
 runs several programs in one spawn, so each test file pays for few.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -17,6 +18,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.distributed import sharding, tensor_parallel
 from repro_torch.launch.serve import reduce_config, serve_batch
 from repro_torch.models import LM
+from repro_torch.models import lm as lm_module
 from repro_torch.models.layers import tree_map
 from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
 from repro_torch.optim.compression import compressed_all_reduce, compressed_all_reduce_tree
@@ -165,15 +167,16 @@ def shapes_of(tree):
     return tree_map(lambda t: tuple(t.shape), tree)
 
 
-def tp_serve(comm, arch_kw, params, batch, gen, decode_embeds=None, prompts=None):
-    """One config on this rank's shards under ``serve_rules``: prefill and
+def tp_serve(comm, arch_kw, params, batch, gen, decode_embeds=None, prompts=None, rules=None):
+    """One config on this rank's shards under ``rules`` (default
+    ``serve_rules``): prefill and
     ``gen`` greedy ``decode_step``s with float32 caches (the vocab-parallel
     argmax; the logits gathered), ``serve_batch``'s tokens from
     ``prompts`` (bf16 caches), and the rank's parameter and cache shapes.
     ``decode_embeds`` (gen, B, 1, D): the inputs of an arch that takes
     embeddings."""
     lm = lm_of(**arch_kw)
-    rules = sharding.serve_rules(False)
+    rules = rules or sharding.serve_rules(False)
     specs = param_shardings(lm, comm.mesh, rules)
     p = sharding.shard_tree(tensors(params, "cpu"), specs, comm.mesh, comm.coords, comm.device)
     b = tensors(batch, comm.device)
@@ -201,40 +204,110 @@ def tp_serve(comm, arch_kw, params, batch, gen, decode_embeds=None, prompts=None
     return out
 
 
-def tp_train(comm, arch_kw, params, batches, lr, eps, ckpt=None, replicated_grads=False):
+@contextlib.contextmanager
+def stream_probe(lm):
+    """Record each superblock's input shape (``shapes``) and, per
+    ``checkpoint`` of one under remat, the bytes it saves of that input
+    for the backward (``saved``, through ``saved_tensors_hooks``)."""
+    rec = {"shapes": [], "saved": []}
+    run, remat = lm._superblock, lm_module.checkpoint
+
+    def superblock(x, *args):
+        rec["shapes"].append(tuple(x.shape))
+        return run(x, *args)
+
+    def checkpoint(fn, x, *args, **kw):
+        got = []
+
+        def pack(t):
+            if t.data_ptr() == x.data_ptr():
+                got.append(t.numel() * t.element_size())
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = remat(fn, x, *args, **kw)
+        rec["saved"].append(sum(got))
+        return out
+
+    lm._superblock, lm_module.checkpoint = superblock, checkpoint
+    try:
+        yield rec
+    finally:
+        del lm._superblock
+        lm_module.checkpoint = remat
+
+
+def tp_train(comm, arch_kw, params, batches, lr, eps, ckpt=None, replicated_grads=False,
+             rules=None):
     """Steps of the sharded `build_train_step` (FSDP over ``data``, tensor
-    parallelism over ``model``) from ``params``: losses, grad norms, the
-    rank's shard shapes, the gathered params (rank 0), and with
-    ``replicated_grads`` the first batch's gradients of the leaves
-    replicated over ``model`` as this rank computes them. With ``ckpt``,
-    rank 0 writes the state after the steps there."""
+    parallelism over ``model``; ``rules``: entries over
+    ``train_rules(False)``, e.g. ``act_seq`` on ``model``) from
+    ``params``: losses, grad norms, the rank's shard shapes, the gathered
+    params (rank 0), the
+    rank's own final shards of the leaves that ``model`` does not split,
+    and with ``replicated_grads`` the first batch's gradients of those
+    leaves as the step syncs them over ``model`` (the stream's norms
+    summed where the stream was split). The first step's stream shapes
+    and saved bytes (`stream_probe`). With ``ckpt``, rank 0 writes the
+    state after the steps there."""
     lm = lm_of(**arch_kw)
+    rules = {**sharding.train_rules(False), **(rules or {})}
     opt = AdamW(AdamWConfig(lr=lr, eps=eps),
                 cosine_schedule(lr, warmup_steps=1, total_steps=len(batches)))
-    step, shardings, _ = build_train_step(lm, opt, comm, remat=True)
-    state = opt.init(sharding.shard_tree(tensors(params, "cpu"), shardings.params, comm.mesh,
+    step, shardings, _ = build_train_step(lm, opt, comm, rules, remat=True)
+    specs = shardings.params
+    state = opt.init(sharding.shard_tree(tensors(params, "cpu"), specs, comm.mesh,
                                          comm.coords, comm.device))
     out = {"shard_shapes": shapes_of(state.params), "model_index": comm.axis_index("model"),
            "data_index": comm.axis_index("data")}
+
+    def replicated(tree):
+        return tree_map(
+            lambda t, s: None if any("model" in a for _, a in sharding.sharded_dim(s, comm.mesh))
+            else t, tree, specs)
+
     if replicated_grads:
-        specs = shardings.params
         full = tree_map(lambda t, s: sharding.gather_leaf(t, s, comm, keep=("model",)),
                         state.params, specs)
-        with sharding.activation_ctx(comm, sharding.train_rules(False)):
-            _, grads = loss_and_grads(lm, full, local_rows(batches[0], comm, ("data",)))
-        out["replicated_grads"] = tree_map(
-            lambda g, s: None if any("model" in a for _, a in sharding.sharded_dim(s, comm.mesh))
-            else g, grads, specs)
+        rows = local_rows(batches[0], comm, ("data",))
+        with sharding.activation_ctx(comm, rules):
+            _, grads = loss_and_grads(lm, full, rows)
+            split = sharding.seq_split(lm.seq_len(rows)) > 1
+        out["replicated_grads"] = replicated(_summed_norms(grads, comm) if split else grads)
     losses, norms = [], []
-    for b in batches:
-        state, m = step(state, b)
+    for i, b in enumerate(batches):
+        with stream_probe(lm) if i == 0 else contextlib.nullcontext() as probe:
+            state, m = step(state, b)
+        if i == 0:
+            out["stream"] = probe
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    out["replicated_params"] = replicated(state.params)
     whole = gather_state(state, shardings, comm)
     if ckpt is not None and comm.rank == 0:
         CheckpointManager(ckpt).save(len(batches), whole, blocking=True)
     out.update(losses=losses, grad_norms=norms,
                params=whole.params if comm.rank == 0 else None)
+    return out
+
+
+def _summed_norms(tree, comm):
+    """The stream's norms (`LM.STREAM_NORMS`) summed over ``model``."""
+    return {k: _summed_norms(v, comm) if isinstance(v, dict) else
+            comm.all_reduce(v.float(), "model") if k in LM.STREAM_NORMS else v
+            for k, v in tree.items()}
+
+
+def seq_collectives(comm, x, cot):
+    """The differentiable reduce-scatter and split along dim 1 over
+    ``model``: each one's output and the gradient of ``x`` (this rank's
+    rows of the inputs) from this rank's cotangent ``cot[rank]``."""
+    out = {}
+    for name in ("reduce_scatter", "split"):
+        xi = torch.from_numpy(x[comm.rank]).requires_grad_()
+        y = getattr(comm, name)(xi, "model", 1)
+        y.backward(torch.from_numpy(cot[comm.rank]))
+        out[name] = {"y": y.detach(), "grad": xi.grad}
     return out
 
 
@@ -290,4 +363,5 @@ def gathered_serve(comm, arch_kw, params, prompts, gen, rules):
 
 PROGRAMS = {f.__name__: f for f in (gather_leaves, compressed_sums, compressed_sync,
                                     compressed_steps, fsdp_steps, pp_grads, serve, collectives,
-                                    tp_serve, tp_train, vocab_parallel, gathered_serve)}
+                                    tp_serve, tp_train, vocab_parallel, gathered_serve,
+                                    seq_collectives)}
