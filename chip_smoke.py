@@ -1335,6 +1335,8 @@ def solve_busy_share(args, kw, reps: int = 5) -> dict:
         torch.cuda.synchronize()
     busy_us, kernels, host = 0.0, {}, {}
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue  # the port's `obs` spans (and their device-side mirrors): not work
         dev = getattr(evt, "device_time_total", 0.0) or 0.0
         if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
             if dev > 0:
@@ -2710,6 +2712,8 @@ def decode_profile(lm, params, prompts, gen: int, steps: int = 4, images=None) -
     by_kernel, host, launches = {}, {}, 0
     dec_ms, dec_calls = 0.0, 0
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue  # the port's `obs` spans (and their device-side mirrors): not work
         dev = getattr(evt, "device_time_total", 0.0) or 0.0
         if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
             if dev > 0:
@@ -3177,7 +3181,9 @@ def _train_profile(lm, batch, step_s: float) -> dict:
     # tree, ~30 s for the 175,000 kernels of a recurrentgemma-2b step.
     for evt in prof.profiler.kineto_results.events():
         ms = evt.duration_ns() / 1e6
-        if evt.device_type() == torch.autograd.DeviceType.CUDA and ms > 0:
+        # A span's range mirrored onto the device's timeline is no kernel.
+        if (evt.device_type() == torch.autograd.DeviceType.CUDA and ms > 0
+                and not evt.is_user_annotation()):
             busy += ms
             by_kernel[evt.name()] += ms
             launches += 1

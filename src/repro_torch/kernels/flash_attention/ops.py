@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ... import obs
 from . import kernel_cuda, ref
 
 
@@ -34,10 +35,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = ref.attention_ref(*inputs, causal=ctx.causal, scale=ctx.scale)
-            dq, dk, dv = torch.autograd.grad(out, inputs, do)
+        with obs.span("lm.attn.flash_backward"):
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                out = ref.attention_ref(*inputs, causal=ctx.causal, scale=ctx.scale)
+                dq, dk, dv = torch.autograd.grad(out, inputs, do)
         return dq, dk, dv, None, None, None
 
 

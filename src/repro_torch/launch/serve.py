@@ -44,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import configs, kernels
+from .. import configs, kernels, obs
 from ..device import resolve_device
 from ..distributed import comm as dist_comm
 from ..distributed import sharding, tensor_parallel
@@ -163,7 +163,9 @@ def serve_batch(
 def _generate(prefill, decode, params, prompts, gen_tokens, *, temperature, seed, timings,
               return_logits, vocab=None):
     """`serve_batch`'s loop: ``prefill(params, batch)`` and ``decode(params,
-    batch, cache, lengths)``, each returning (logits, cache, lengths).
+    batch, cache, lengths)``, each returning (logits, cache, lengths), in
+    the spans ``lm.prefill`` and ``lm.decode_step`` (``step``: the index of
+    the token the step picks), each with its pick.
     ``vocab``: the `TensorParallel` whose ranks hold the logits' vocab
     columns, or None where they are whole."""
     device = params["embed"].device
@@ -185,15 +187,18 @@ def _generate(prefill, decode, params, prompts, gen_tokens, *, temperature, seed
 
     t0 = time.perf_counter()
     tokens = torch.as_tensor(prompts, dtype=torch.long, device=device)
-    logits, cache, lengths = prefill(params, {"tokens": tokens})
-    tok = pick(logits)
+    with obs.span("lm.prefill"):
+        logits, cache, lengths = prefill(params, {"tokens": tokens})
+        tok = pick(logits)
     out = [tok]
     seen = [whole(logits)] if return_logits else []
     sync()
     t1 = time.perf_counter()
-    for _ in range(gen_tokens - 1):
-        logits, cache, lengths = decode(params, {"tokens": tok[:, None].long()}, cache, lengths)
-        tok = pick(logits)
+    for step in range(1, gen_tokens):
+        with obs.span("lm.decode_step", step=step):
+            logits, cache, lengths = decode(params, {"tokens": tok[:, None].long()}, cache,
+                                            lengths)
+            tok = pick(logits)
         out.append(tok)
         if return_logits:
             seen.append(whole(logits))

@@ -56,6 +56,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..distributed import sharding, tensor_parallel
 from ..kernels.rglru_scan import ops as rglru_ops
@@ -487,35 +488,37 @@ def _moe_dispatch(cfg, router, xt):
     E, K = cfg.n_experts, cfg.experts_per_token
     cap = min(int(cfg.moe_capacity_factor * Tg * K / E) + 1, Tg * K)
 
-    logits = (xt @ router).float()  # (G, Tg, E)
-    gate_all = torch.softmax(logits, dim=-1)
-    gates, experts = torch.sort(gate_all, dim=-1, descending=True, stable=True)
-    gates, experts = gates[..., :K], experts[..., :K]  # (G, Tg, K)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    with obs.span("lm.moe.router"):
+        logits = (xt @ router).float()  # (G, Tg, E)
+        gate_all = torch.softmax(logits, dim=-1)
+        gates, experts = torch.sort(gate_all, dim=-1, descending=True, stable=True)
+        gates, experts = gates[..., :K], experts[..., :K]  # (G, Tg, K)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    flat_e = experts.reshape(G, Tg * K)
-    flat_g = gates.reshape(G, Tg * K)
-    order = torch.argsort(flat_e, dim=1, stable=True)  # group-local sort
-    e_sorted = flat_e.gather(1, order)
-    tok_sorted = order // K  # the pair's token: flat index t * K + k
-    g_sorted = flat_g.gather(1, order)
+    with obs.span("lm.moe.dispatch"):
+        flat_e = experts.reshape(G, Tg * K)
+        flat_g = gates.reshape(G, Tg * K)
+        order = torch.argsort(flat_e, dim=1, stable=True)  # group-local sort
+        e_sorted = flat_e.gather(1, order)
+        tok_sorted = order // K  # the pair's token: flat index t * K + k
+        g_sorted = flat_g.gather(1, order)
 
-    # Slot of each pair within its expert's run: its index minus the run's
-    # first index (a running max of the runs' first indices).
-    ar = torch.arange(Tg * K, dtype=torch.int32, device=xt.device).expand(G, -1)
-    change = torch.ones_like(e_sorted, dtype=torch.bool)
-    change[:, 1:] = e_sorted[:, 1:] != e_sorted[:, :-1]
-    first_idx = torch.cummax(torch.where(change, ar, 0), dim=1).values
-    pos = ar - first_idx
-    keep = pos < cap
-    pos_c = torch.where(keep, pos, 0)
+        # Slot of each pair within its expert's run: its index minus the run's
+        # first index (a running max of the runs' first indices).
+        ar = torch.arange(Tg * K, dtype=torch.int32, device=xt.device).expand(G, -1)
+        change = torch.ones_like(e_sorted, dtype=torch.bool)
+        change[:, 1:] = e_sorted[:, 1:] != e_sorted[:, :-1]
+        first_idx = torch.cummax(torch.where(change, ar, 0), dim=1).values
+        pos = ar - first_idx
+        keep = pos < cap
+        pos_c = torch.where(keep, pos, 0)
 
-    gathered = xt.gather(1, tok_sorted[..., None].expand(-1, -1, D))
-    g_idx = torch.arange(G, device=xt.device)[:, None]
-    # A kept pair is alone in its slot; a dropped one adds zeros to slot 0.
-    buf = torch.zeros((G, E, cap, D), dtype=xt.dtype, device=xt.device).index_put(
-        (g_idx, e_sorted, pos_c.long()), torch.where(keep[..., None], gathered, 0),
-        accumulate=True)
+        gathered = xt.gather(1, tok_sorted[..., None].expand(-1, -1, D))
+        g_idx = torch.arange(G, device=xt.device)[:, None]
+        # A kept pair is alone in its slot; a dropped one adds zeros to slot 0.
+        buf = torch.zeros((G, E, cap, D), dtype=xt.dtype, device=xt.device).index_put(
+            (g_idx, e_sorted, pos_c.long()), torch.where(keep[..., None], gathered, 0),
+            accumulate=True)
     return buf, (e_sorted, pos_c, keep, g_sorted, tok_sorted, order)
 
 
@@ -590,12 +593,14 @@ def moe_apply(cfg, p, x):
     buf, meta = _moe_dispatch(cfg, p["router"], xt)
     tp = tensor_parallel.split(p["we1"], cfg.n_experts, 0)
     n_local = p["we1"].shape[0]
-    if tp is not None:
-        mine = tp.copy(buf).narrow(1, tp.index * n_local, n_local)
-        out_buf = tp.gather(_moe_experts(cfg, p, mine), 1)
-    else:
-        out_buf = _moe_experts(cfg, p, buf)
-    out = _moe_combine(out_buf, meta, tuple(xt.shape), xt.dtype)
+    with obs.span("lm.moe.experts"):
+        if tp is not None:
+            mine = tp.copy(buf).narrow(1, tp.index * n_local, n_local)
+            out_buf = tp.gather(_moe_experts(cfg, p, mine), 1)
+        else:
+            out_buf = _moe_experts(cfg, p, buf)
+    with obs.span("lm.moe.combine"):
+        out = _moe_combine(out_buf, meta, tuple(xt.shape), xt.dtype)
     out = out.reshape(-1, D)
     if straddle:
         i = comm.axis_index(baxes)

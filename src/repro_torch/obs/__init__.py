@@ -13,9 +13,10 @@ with ``REPRO_OBS=1`` or `set_enabled(True)`):
 
     obs.export.save_chrome_trace("trace.json")        # open in Perfetto
     obs.export.save_audit_jsonl("audit.jsonl")
-    obs.export.summarize()                            # benchmark sections
 
 ``jit_compiles()`` counts kernel builds and library loads (`kernels.build`).
+While a `torch.profiler` records, each span is also a range named
+``repro_torch.<name>`` in its trace, telemetry on or off (`spans`).
 """
 
 from . import export  # noqa: F401

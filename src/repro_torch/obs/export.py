@@ -20,8 +20,7 @@ runs over an exported replay: structural checks per event plus a
 per-thread proper-nesting check over the X slices.
 
 `save_audit_jsonl` writes the migration controller's structured audit
-events one JSON object per line; `summarize` condenses the registry into
-the ``telemetry`` section benchmarks embed in their result JSONs.
+events one JSON object per line.
 """
 
 from __future__ import annotations
@@ -219,31 +218,3 @@ def save_audit_jsonl(path: str, tel: Optional[_spans.Telemetry] = None) -> int:
             f.write(json.dumps(_json_safe(rec)))
             f.write("\n")
     return len(records)
-
-
-def summarize(tel: Optional[_spans.Telemetry] = None) -> Dict[str, Any]:
-    """Condense the registry into a benchmark-JSON ``telemetry`` section:
-    counters, per-span-name {count, total_s}, and drop accounting."""
-    tel = tel if tel is not None else _spans.get()
-    with tel._lock:
-        span_records = list(tel.spans)
-        counters = dict(tel.counters)
-        n_samples = tel._n_track_samples
-        n_audit = len(tel.audit)
-        dropped = (tel.dropped_spans, tel.dropped_samples, tel.dropped_audit)
-    spans_out: Dict[str, Dict[str, float]] = {}
-    for rec in span_records:
-        agg = spans_out.setdefault(rec.name, {"count": 0, "total_s": 0.0})
-        agg["count"] += 1
-        agg["total_s"] += rec.dur_ns / 1e9
-    return {
-        "counters": {k: counters[k] for k in sorted(counters)},
-        "spans": {k: spans_out[k] for k in sorted(spans_out)},
-        "track_samples": n_samples,
-        "audit_events": n_audit,
-        "dropped": {
-            "spans": dropped[0],
-            "samples": dropped[1],
-            "audit": dropped[2],
-        },
-    }

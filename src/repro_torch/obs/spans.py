@@ -15,10 +15,21 @@ module-level `Telemetry` registry collects:
 - **audit events** — structured dicts (the migration controller's
   per-round decision record).
 
+Two sinks, two clocks. The registry stamps spans with
+``time.perf_counter_ns`` (`SpanRecord.t0_ns`, relative to
+`Telemetry.epoch_ns` in the Chrome export). While a `torch.profiler`
+records, every `span` is also a ``torch.profiler.record_function`` range
+named ``repro_torch.<name>``, opened and closed with it: the profiler
+stamps the range on its own clock, the one its CUDA kernels and runtime
+calls carry, so a span lies beside the device work it launched. The
+profiler sink needs no telemetry, so that a trace taken with telemetry off
+(the benchmark's traced runs) still holds the ranges.
+
 Zero-cost-when-disabled contract: every public entry point checks one
 module-level boolean first and returns a shared no-op (`_NULL_SPAN`) or
-falls through without touching the registry. The flag defaults to the
-``REPRO_OBS`` environment variable (off unless set to something truthy);
+falls through without touching the registry; `span` then checks the
+profiler's flag. The flag defaults to the ``REPRO_OBS`` environment
+variable (off unless set to something truthy);
 tests and benchmarks flip it programmatically via `set_enabled`. Note
 that ``multiprocessing`` *spawn* workers (the sweep pool) re-read the
 environment variable — a programmatic `set_enabled(True)` in the parent
@@ -42,6 +53,11 @@ import os
 import threading
 import time
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
+
+from torch.autograd import profiler as _profiler
+
+#: Prefix of a span's range in a `torch.profiler` trace.
+PROFILER_PREFIX = "repro_torch."
 
 #: Counter-name prefixes excluded from deterministic snapshots:
 #: process-warm-up accounting (kernel builds and loads), not simulation work.
@@ -79,23 +95,34 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    """Live span handle; records itself into the registry on exit."""
+def _profiler_range(name: str):
+    """The span's range in the `torch.profiler` trace being recorded."""
+    return _profiler.record_function(PROFILER_PREFIX + name)
 
-    __slots__ = ("_tel", "name", "args", "_t0_ns")
+
+class _Span:
+    """Live span handle; records itself into the registry on exit, and
+    opens and closes its profiler range while a profiler records."""
+
+    __slots__ = ("_tel", "name", "args", "_t0_ns", "_range")
 
     def __init__(self, tel: "Telemetry", name: str, args):
         self._tel = tel
         self.name = name
         self.args = args
+        self._range = None
 
     def __enter__(self) -> "_Span":
         self._tel._stack().append(self)
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler_range(self.name).__enter__()
         self._t0_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         stack = self._tel._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -259,8 +286,11 @@ def reset() -> None:
 
 
 def span(name: str, **args: Any):
+    """A span: in the registry while telemetry is enabled, in the trace
+    while a `torch.profiler` records (``repro_torch.<name>``), else the
+    shared no-op."""
     if not _enabled:
-        return _NULL_SPAN
+        return _profiler_range(name) if _profiler._is_profiler_enabled else _NULL_SPAN
     return _telemetry.span(name, args or None)
 
 

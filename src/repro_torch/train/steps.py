@@ -52,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from .. import obs
 from ..distributed import sharding as shd
 from ..distributed.comm import rank_rows
 from ..models import LM
@@ -66,10 +67,13 @@ def loss_and_grads(lm: LM, params, batch, *, remat: bool = True):
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     flat = list(leaves(live))
     with torch.enable_grad():
-        loss = lm.loss(live, batch, remat=remat)
+        with obs.span("lm.train.forward"):
+            loss = lm.loss(live, batch, remat=remat)
         # A leaf the loss does not reach (the stacked blocks of a model
         # with no superblock) gets zeros, as jax.grad gives it.
-        grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat, materialize_grads=True)))
+        with obs.span("lm.train.backward"):
+            grads = dict(zip(map(id, flat),
+                             torch.autograd.grad(loss, flat, materialize_grads=True)))
     return loss.detach().float(), tree_map(lambda t: grads[id(t)], live)
 
 
@@ -168,8 +172,9 @@ def build_train_step(lm: LM, optimizer: AdamW, comm=None, rules=None, *, remat: 
         grads = tree_map(lambda g, spec, norm: sync(g.float(), spec, norm and seq_split),
                          grads, specs, norms)
         loss = comm.all_reduce(loss, baxes)  # each rank's share of the global mean
-        gnorm = global_norm(grads)
-        new_state = optimizer.apply(state, grads, gnorm=gnorm)
+        with obs.span("lm.train.optimizer"):
+            gnorm = global_norm(grads)
+            new_state = optimizer.apply(state, grads, gnorm=gnorm)
         return new_state, {"loss": loss.float(), "grad_norm": gnorm, "step": new_state.step}
 
     def batch_shardings(batch_tree):
@@ -216,13 +221,10 @@ def _single_device_step(lm: LM, optimizer: AdamW, remat: bool, grad_accum: int):
             loss = loss / n
             grads = tree_map(lambda g: g / n, grads)
 
-        new_state = optimizer.apply(state, grads)
-        metrics = {
-            "loss": loss.float(),
-            "grad_norm": optimizer.global_norm(grads),
-            "step": new_state.step,
-        }
-        return new_state, metrics
+        with obs.span("lm.train.optimizer"):
+            new_state = optimizer.apply(state, grads)
+            gnorm = optimizer.global_norm(grads)
+        return new_state, {"loss": loss.float(), "grad_norm": gnorm, "step": new_state.step}
 
     return step
 
