@@ -10,8 +10,9 @@ exits non-zero; nothing is caught):
               nvidia-smi gives it), torch and CUDA versions.
 2. build    - nvcc builds every kernel source of the port at once
               (sm_90a), seconds taken and ptxas' register and spill lines
-              per source. flash_attention.cu, decode_attention.cu,
-              rwkv6_scan.cu, rglru_scan.cu and auction_phase.cu are rebuilt
+              per source. flash_attention.cu, flash_attention_bwd.cu,
+              decode_attention.cu, rwkv6_scan.cu, rglru_scan.cu and
+              auction_phase.cu are rebuilt
               on every run, so their ptxas reports are always read; fails if
               any instance of any of them spills (or a report is missing).
 3. kernels  - each kernel against its plain PyTorch version on the card at
@@ -248,15 +249,24 @@ exits non-zero; nothing is caught):
 
 14. grad_kernels - the training path's autograd Functions at a full-width
               layer's shapes, f32: flash at qwen3-0.6b's (8, 16 / 8, 1,024,
+              128) and at its 4,096-token training layer (4, 16 / 8, 4,096,
               128), RG-LRU at recurrentgemma-2b's (4, 2,048, 2,560), RWKV-6
               at rwkv6-7b's (8, 64, 1,024, 64) in chunks of 256. Each
               Function's gradients (and outputs) against plain autograd on
-              the same card tensors: flash and RG-LRU bit for bit (their
-              backward recomputes the plain version), RWKV-6 against its
-              chunked op run with the plain forward, within 1e-4 (its chunk
-              states come from the kernel); the kernel's launches per
-              forward (1, 1, 4); forward and backward ms (CUDA events) and
-              peak memory of the Function and of the plain version.
+              the same card tensors: flash within FLASH_GRAD_TOL of each
+              gradient's largest magnitude (its backward is a kernel of its
+              own, one call a backward), RG-LRU bit for bit (its backward
+              recomputes the plain version), RWKV-6 against its chunked op
+              run with the plain forward, within 1e-4 (its chunk states
+              come from the kernel); the kernel's launches per forward (1,
+              1, 4); forward and backward ms (CUDA events) and peak memory
+              of the Function and of the plain version. Flash's backward
+              kernel alone at both shapes: call ms, the device ms of its Δ,
+              dQ and dK/dV launches, its bound (5 products in 3 TF32
+              passes, or its bytes) with the design's 7 products beside
+              it, and scaled_dot_product_attention's f32 backward (a
+              yardstick, never used by the port) with its gradients'
+              error.
 15. train, train_recurrentgemma, train_rwkv - ``launch.train.main`` at full
               width, f32, remat, depth cut inside this script
               (``dataclasses.replace(cfg, n_layers=...)`` in place of
@@ -375,7 +385,9 @@ flash, the training phases' beside them), the recurrentgemma and rwkv6 serves fo
 scans (with the training phases' beside them), and for the three trained
 kernels their launches per train step and grad_kernels' numbers - max abs
 error and tolerance, kernel / device / plain / bound / library times at
-the main shape) and, last, ``{"ok": true, "device": {...}}``.
+the main shape; flash's backward kernel its own entry: its launches in
+the training phases, its gradients' error and grad_kernels' times at
+the 4,096-token layer) and, last, ``{"ok": true, "device": {...}}``.
 
 Runs from a checkout (it imports ``src/repro_torch``); it needs no JAX and
 no network, and exits non-zero without a CUDA device.
@@ -456,6 +468,13 @@ KERNEL_INFO = {
         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:66",
     },
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        # a pallas_call has no VJP; the reference differentiates only the
+        # plain XLA form
+        "replaces": None,
+    },
 }
 SCHEDULER_KERNELS = ("costmap", "auction_bid", "auction_phase")
 # Full-width auction phases: rounds of (tasks, jobs) at 12,500 machines, and
@@ -477,8 +496,8 @@ WHATIF_BETAS = (0.0, 100.0 / 3600.0)
 MCMF_PARITY_MACHINES = 384
 TRACE_WINDOW_S = 3600
 # Sources rebuilt on every run whose ptxas reports must show no spill.
-SPILL_GATED = ("flash_attention.cu", "decode_attention.cu", "rwkv6_scan.cu", "rglru_scan.cu",
-               "auction_phase.cu")
+SPILL_GATED = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu",
+               "rwkv6_scan.cu", "rglru_scan.cu", "auction_phase.cu")
 DECODE_KERNEL = ("decode_attention_kernel",)
 L2_FLUSH_BYTES = 128 * 2**20  # more than the H100's 50 MB L2
 # A small shape at a head_dim no kernel is compiled for (qwen3-0.6b's at
@@ -491,6 +510,10 @@ SERVE_KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "rwkv6_sca
 SERVE_ARCH = "qwen3-0.6b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
 ATT_TOL = {"f32": 2e-5, "bf16": 2e-2}
+# Flash's backward kernel against autograd through the plain version: each
+# gradient within this share of its largest magnitude (f32; as
+# tests/test_torch_cuda.py).
+FLASH_GRAD_TOL = 1e-5
 PARITY_TOL = 2e-3
 # The recurrent serving paths at full width. recurrentgemma-2b's prompts
 # fill its 2,048-token window: flash runs at S = 2,048 and every decode step
@@ -526,11 +549,15 @@ RGLRU_OPS = 8  # 2*la, expm1, negate, sqrt, exp, a*h, mult*gx, add
 # v_j * c_t, one scalar per step and head.
 RWKV_OPS = 5
 # Training: each kernel's Function at a full-width layer's shapes (flash:
-# qwen3-0.6b's (B, H, KVH, S, D); RG-LRU: recurrentgemma-2b's (B, T, D) at
-# batch 4; RWKV-6: rwkv6-7b's (B, H, T, N) in chunks of 256), and the train
-# runs at full width, depth cut: (arch, layers, batch, seq).
-GRAD_SHAPES = {"flash_attention": (8, 16, 8, 1024, 128), "rglru_scan": (4, 2048, 2560),
-               "rwkv6_scan": (8, 64, 1024, 64)}
+# qwen3-0.6b's (B, H, KVH, S, D), then its layer in qwen3-0.6b.train-4k,
+# where the tensor cores' truncation showed in the backward; RG-LRU:
+# recurrentgemma-2b's (B, T, D) at batch 4; RWKV-6: rwkv6-7b's (B, H, T,
+# N) in chunks of 256), and the train runs at full width, depth cut:
+# (arch, layers, batch, seq).
+GRAD_SHAPES = {"flash_attention": (8, 16, 8, 1024, 128),
+               "flash_attention.train_4k": (4, 16, 8, 4096, 128),
+               "rglru_scan": (4, 2048, 2560), "rwkv6_scan": (8, 64, 1024, 64)}
+FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")
 GRAD_RWKV_CHUNK = 256
 TRAIN_RUNS = {
     "train": ("qwen3-0.6b", 28, 8, 1024),
@@ -1926,6 +1953,20 @@ def flash_bound(B, H, KVH, S, D, dt: str, causal: bool = True) -> dict:
             "cuda_core_bound_ms": cuda_core[0]}
 
 
+def flash_bwd_bound(B, H, KVH, S, D, causal: bool = True) -> dict:
+    """bound_ms / bound_by of flash's f32 backward on the tensor cores: the
+    5 products the gradients need (S and dP recomputed, dV, dK, dQ; 2 B H D
+    operations a (query, key) pair each) in 3 TF32 passes, or its bytes (q,
+    o, dO, dq; k, v, dk, dv; the log-sum-exp and Δ). Beside it design_ms:
+    the kernel's 7 products (its dQ pass recomputes S and dP)."""
+    n_bytes = (4 * B * H * S * D + 4 * B * KVH * S * D + 2 * B * H * S) * 4
+    pairs = S * (S + 1) // 2 if causal else S * S
+    product = 2 * B * H * D * pairs
+    b_ms, b_by = bound_ms(n_bytes, 3 * 5 * product, TF32_OPS_PER_S)
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "design_ms": bound_ms(n_bytes, 3 * 7 * product, TF32_OPS_PER_S)[0]}
+
+
 def decode_bound(H, KVH, D, lengths, q_dt: str, c_dt: str):
     csize = 4 if c_dt == "f32" else 2
     qsize = 4 if q_dt == "f32" else 2
@@ -3048,11 +3089,13 @@ def _grad_times(fn, inputs, cots, reps: int) -> dict:
 
 def phase_grad_kernels() -> dict:
     """Each kernel's autograd Function at a full-width layer's shapes: its
-    gradients against plain autograd on the same card tensors (flash and
-    RG-LRU bit for bit: their backward is the plain one; RWKV-6 against the
-    chunked op run with the plain forward, within the forward's tolerance:
-    its chunk states come from the kernel), the kernel's launches, and the
-    forward / backward ms and peak memory of both."""
+    gradients against plain autograd on the same card tensors (flash within
+    FLASH_GRAD_TOL of each gradient's largest magnitude: its backward is a
+    kernel; RG-LRU bit for bit: its backward is the plain one; RWKV-6
+    against the chunked op run with the plain forward, within the forward's
+    tolerance: its chunk states come from the kernel), the kernel's
+    launches, and the forward / backward ms and peak memory of both; for
+    flash's backward kernel also `_flash_backward`'s numbers."""
     import torch
 
     from repro_torch import kernels
@@ -3070,10 +3113,14 @@ def phase_grad_kernels() -> dict:
     def randn(shape, scale=1.0):
         return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to("cuda")
 
-    B, H, KVH, S, D = GRAD_SHAPES["flash_attention"]
-    scale = 1.0 / D**0.5
-    fa_in = [randn((B, H, S, D)), randn((B, KVH, S, D)), randn((B, KVH, S, D))]
-    fa_cot = (randn((B, H, S, D)),)
+    def flash_case(name):
+        B, H, KVH, S, D = GRAD_SHAPES[name]
+        scale = 1.0 / D**0.5
+        return (lambda q, k, v: fa_ops.flash_attention(q, k, v, causal=True, scale=scale),
+                lambda q, k, v: fa_ref.attention_ref(q, k, v, causal=True, scale=scale),
+                [randn((B, H, S, D)), randn((B, KVH, S, D)), randn((B, KVH, S, D))],
+                (randn((B, H, S, D)),), 1, False)
+
     B, T, Dr = GRAD_SHAPES["rglru_scan"]
     rg_in = [-torch.from_numpy(rng.uniform(0.001, 2.0, (B, T, Dr)).astype(np.float32)).cuda(),
              randn((B, T, Dr))]
@@ -3085,12 +3132,11 @@ def phase_grad_kernels() -> dict:
     rk_cot = (randn((B, Hr, T, N)), randn((B, Hr, N, N)))
     chunk = GRAD_RWKV_CHUNK
     cases = {
-        # name: (the op as the model calls it, plain autograd, inputs, cotangents,
-        #        launches of one forward, bit-equal?)
-        "flash_attention": (
-            lambda q, k, v: fa_ops.flash_attention(q, k, v, causal=True, scale=scale),
-            lambda q, k, v: fa_ref.attention_ref(q, k, v, causal=True, scale=scale),
-            fa_in, fa_cot, 1, True),
+        # name (the kernel's, then a tag): (the op as the model calls it,
+        # plain autograd, inputs, cotangents, launches of one forward,
+        # bit-equal?)
+        "flash_attention": flash_case("flash_attention"),
+        "flash_attention.train_4k": flash_case("flash_attention.train_4k"),
         "rglru_scan": (lambda la, gx: rg_ops.rglru_scan(la, gx, None),
                        lambda la, gx: rg_ref.rglru_scan_ref(la, gx, None),
                        rg_in, rg_cot, 1, True),
@@ -3100,9 +3146,11 @@ def phase_grad_kernels() -> dict:
     }
     out = {}
     for name, (op, plain, inputs, cots, n_launch, exact) in cases.items():
-        before = kernels.launch_counts()[name]
+        kernel = name.split(".")[0]
+        before = kernels.launch_counts()
         got_out, got = _grads(op, inputs, cots)
-        launched = kernels.launch_counts()[name] - before
+        after = kernels.launch_counts()
+        launched = after[kernel] - before[kernel]
         want_out, want = _grads(plain, inputs, cots)
         if launched != n_launch:
             raise AssertionError(f"{name}: the Function launched {launched} kernels, "
@@ -3112,18 +3160,37 @@ def phase_grad_kernels() -> dict:
             diffs = [float((a - b).abs().max()) for a, b in zip(got, want)]
             raise AssertionError(f"{name}: Function gradients differ from plain autograd "
                                  f"{diffs}")
-        tol = ATT_TOL["f32"] if name == "flash_attention" else SCAN_TOL[name]
-        err = max(_agree(f"{name} gradient", a, b, tol)["max_abs_err"]
-                  for a, b in zip(got + got_out, want + want_out))
+        extra = {}
+        if kernel == "flash_attention":
+            bwd_calls = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+            rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+            if bwd_calls != 1 or rel > FLASH_GRAD_TOL:
+                raise AssertionError(f"{name}: {bwd_calls} backward calls, gradients "
+                                     f"within {rel} of their largest magnitude "
+                                     f"(tolerance {FLASH_GRAD_TOL})")
+            # the tolerance holds the error over each gradient's largest
+            # magnitude, not the absolute error
+            tol = None
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            extra = {"max_rel_err_of_largest": rel, "tolerance_of_largest": FLASH_GRAD_TOL,
+                     "output_max_abs_err": max(
+                         _agree(f"{name} output", a, b, ATT_TOL["f32"])["max_abs_err"]
+                         for a, b in zip(got_out, want_out)),
+                     "output_tolerance": ATT_TOL["f32"],
+                     "backward": _flash_backward(GRAD_SHAPES[name], inputs, cots, want)}
+        else:
+            tol = SCAN_TOL[name]
+            err = max(_agree(f"{name} gradient", a, b, tol)["max_abs_err"]
+                      for a, b in zip(got + got_out, want + want_out))
         del got, want, got_out, want_out
-        reps = 5 if name == "flash_attention" else 3
+        reps = 5 if kernel == "flash_attention" else 3
         out[name] = {
             "shape": list(GRAD_SHAPES[name]), "dtype": "f32",
             **({"chunk": chunk} if name == "rwkv6_scan" else {}),
             "launches_per_forward": launched, "bit_equal": bit_equal,
             "max_abs_err": err, "tolerance": 0.0 if exact else tol,
             "function": _grad_times(op, inputs, cots, reps),
-            "plain": _grad_times(plain, inputs, cots, reps),
+            "plain": _grad_times(plain, inputs, cots, reps), **extra,
         }
         torch.cuda.empty_cache()
     info = {"phase": "grad_kernels",
@@ -3133,6 +3200,43 @@ def phase_grad_kernels() -> dict:
             "kernels": out, "phase_s": time.perf_counter() - t_phase}
     emit(info)
     return info
+
+
+def _flash_backward(shape, inputs, cots, want) -> dict:
+    """Flash's backward kernel alone on ``inputs`` (f32 causal), from the
+    forward kernel's output and log-sum-exp: ms a call (CUDA events), the
+    device ms of each of its launches (torch.profiler), the bound, and
+    scaled_dot_product_attention's f32 backward with ``enable_gqa`` (a
+    yardstick; the port never calls it): its ms and its gradients' error
+    against ``want``, autograd through the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel_cuda
+
+    q, k, v = inputs
+    (do,) = cots
+    o, lse = kernel_cuda.flash_attention_cuda(q, k, v, return_lse=True)
+
+    def call():
+        return kernel_cuda.flash_attention_backward_cuda(do, q, k, v, o, lse)
+
+    res = {"ms": time_ms(call, reps=5, per_rep=2, warmup=1),
+           "device_ms": {kern: device_ms(call, (kern,), n=3) for kern in FLASH_BWD_KERNELS},
+           **flash_bwd_bound(*shape)}
+    res["device_ms"]["sum"] = sum(res["device_ms"].values())
+    del o, lse
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                          enable_gqa=True)
+    got = _grads(sdpa, inputs, cots)[1]
+    res["library"] = {
+        "call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True), f32",
+        "max_rel_err_of_largest": max(float((a - b).abs().max() / b.abs().max())
+                                      for a, b in zip(got, want)),
+        **_grad_times(sdpa, inputs, cots, 5)}
+    del got
+    torch.cuda.empty_cache()
+    return res
 
 
 def _train_launches(cfg, seq: int) -> dict:
@@ -3151,7 +3255,10 @@ def _train_launches(cfg, seq: int) -> dict:
                 "rwkv6_scan": kinds.count("rwkv") * (seq // chunk)}
 
     sb, rem = count(cfg.pattern * cfg.n_superblocks), count(cfg.remainder)
-    return {k: 2 * sb[k] + rem[k] for k in sb}
+    # flash's backward: once per attention layer (remat runs a layer's
+    # forward twice, autograd its backward once).
+    return {**{k: 2 * sb[k] + rem[k] for k in sb},
+            "flash_attention_bwd": sb["flash_attention"] + rem["flash_attention"]}
 
 
 def _train_profile(lm, batch, step_s: float) -> dict:
@@ -4763,7 +4870,10 @@ def _entry(name: str, main: dict, launches: int) -> dict:
 
 def _training(name: str, grad: dict, trains: dict, parity: dict) -> dict:
     """A trained kernel's launches in the training phases (the first run of
-    each: 3 steps) and its Function's forward / backward times."""
+    each: 3 steps) and its Function's gradients' error and forward /
+    backward times."""
+    keys = ("shape", "bit_equal", "max_abs_err", "max_rel_err_of_largest",
+            "tolerance_of_largest", "function", "plain")
     return {
         "train_launches_by_phase": {
             **{p: out["launches"][name] for p, out in trains.items()},
@@ -4771,8 +4881,34 @@ def _training(name: str, grad: dict, trains: dict, parity: dict) -> dict:
                for arch, out in parity["archs"].items()}},
         "train_launches_per_step": {p: out["launches_per_step"][name]
                                     for p, out in trains.items()},
-        "grad": {k: grad["kernels"][name][k]
-                 for k in ("shape", "bit_equal", "max_abs_err", "function", "plain")},
+        "grad": {k: grad["kernels"][name][k] for k in keys if k in grad["kernels"][name]},
+    }
+
+
+def _backward_entry(grad: dict, trains: dict, parity: dict, dist: dict) -> dict:
+    """Flash's backward kernel: its calls in the training phases (those
+    across ranks summed over the ranks), its gradients' error at both of
+    grad_kernels' flash shapes, and its times at the 4,096-token layer."""
+    name = "flash_attention_bwd"
+    main = grad["kernels"]["flash_attention.train_4k"]
+    bwd = main["backward"]
+    return {
+        "name": name, **KERNEL_INFO[name],
+        "launches_by_phase": {
+            **{p: out["launches"][name] for p, out in trains.items()},
+            **{f"train_parity_{arch}": out["launches"][name]
+               for arch, out in parity["archs"].items()},
+            **{p: out["launches"][name] for p, out in dist.items()}},
+        "train_launches_per_step": {p: out["launches_per_step"][name]
+                                    for p, out in trains.items()},
+        "max_rel_err_of_largest": {k: grad["kernels"][k]["max_rel_err_of_largest"]
+                                   for k in ("flash_attention", "flash_attention.train_4k")},
+        "tolerance_of_largest": FLASH_GRAD_TOL,
+        "ms": bwd["ms"], "device_ms": bwd["device_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "design_ms": bwd["design_ms"],
+        "plain_ms": main["plain"]["backward_ms"],
+        "library_ms": bwd["library"]["backward_ms"], "library": bwd["library"],
+        "shape": main["shape"],
     }
 
 
@@ -4841,6 +4977,7 @@ def kernels_line(kern: dict, full: dict, dynamic: dict, att: dict, served: dict,
                                                  for p, out in dist.items()}},
                         **extra,
                         "library_ms_null_because": NO_SCAN_LIBRARY, "shapes": rec[name]})
+    entries.append(_backward_entry(grad, trains, parity, dist))
     return {"kernels": entries}
 
 

@@ -11,6 +11,10 @@
 // with G = H / KVH query heads per KV head (K/V are never repeated in
 // memory), float32 logits, softmax and accumulation, and the output in q's
 // dtype (f32, bf16 or f16 inputs; bf16/f16 are widened to f32 on load).
+// Under autograd the caller also asks for each row's log-sum-exp
+// L = m + log(l) of the scaled logits, (B, H, S) f32, which the backward
+// (csrc/flash_attention_bwd.cu) recomputes the probabilities from; it is a
+// compile-time flag, so inference runs the instance without it.
 //
 // Bound on an H100 (published peaks, 700 W): operations. The two products
 // take 4*B*H*D*P operations, P the (query, key) pairs (S(S+1)/2 causal).
@@ -192,10 +196,11 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(32 * Tile<D>::NW, Tile<D>::kMinBlocks)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int H, int KVH,
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int H, int KVH,
                            int S, long long qsB, long long qsH, long long qsS,
                            long long ksB, long long ksH, long long ksS, long long vsB,
                            long long vsH, long long vsS, float scale, int causal) {
@@ -365,6 +370,9 @@ __global__ void __launch_bounds__(32 * Tile<D>::NW, Tile<D>::kMinBlocks)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = r0 + g + 8 * i;
     if (row >= S) continue;
+    if constexpr (kLse) {
+      if (t == 0) lse[((long long)b * H + h) * S + row] = m[i] + logf(l[i]);
+    }
     const float inv_l = 1.0f / l[i];
 #pragma unroll
     for (int n = 0; n < ND; ++n)
@@ -373,38 +381,48 @@ __global__ void __launch_bounds__(32 * Tile<D>::NW, Tile<D>::kMinBlocks)
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
-           int S, const long long* st, float scale, int causal, cudaStream_t stream) {
+template <typename T, int D, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int KVH, int S, const long long* st, float scale, int causal,
+           cudaStream_t stream) {
   constexpr int BQ = 16 * Tile<D>::NW;
   if ((S + BQ - 1) / BQ > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)smem_floats<D>() * sizeof(float);
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+    cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, D, kLse>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
-  flash_attention_kernel<T, D><<<grid, 32 * Tile<D>::NW, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, KVH, S, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], scale, causal);
+  flash_attention_kernel<T, D, kLse><<<grid, 32 * Tile<D>::NW, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, KVH, S, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
-             int S, int D, const long long* st, float scale, int causal, cudaStream_t s) {
+template <typename T, bool kLse>
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int KVH, int S, int D, const long long* st, float scale, int causal,
+             cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, KVH, S, st, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KVH, S, st, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KVH, S, st, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KVH, S, st, scale, causal, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, H, KVH, S, st, scale, causal, s);
+    case 16: return launch<T, 16, kLse>(q, k, v, o, lse, B, H, KVH, S, st, scale, causal, s);
+    case 32: return launch<T, 32, kLse>(q, k, v, o, lse, B, H, KVH, S, st, scale, causal, s);
+    case 64: return launch<T, 64, kLse>(q, k, v, o, lse, B, H, KVH, S, st, scale, causal, s);
+    case 128: return launch<T, 128, kLse>(q, k, v, o, lse, B, H, KVH, S, st, scale, causal, s);
+    case 256: return launch<T, 256, kLse>(q, k, v, o, lse, B, H, KVH, S, st, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+int launch_l(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int KVH, int S, int D, const long long* st, float scale, int causal,
+             cudaStream_t s) {
+  return lse ? launch_d<T, true>(q, k, v, o, lse, B, H, KVH, S, D, st, scale, causal, s)
+             : launch_d<T, false>(q, k, v, o, lse, B, H, KVH, S, D, st, scale, causal, s);
 }
 
 }  // namespace
@@ -414,10 +432,11 @@ extern "C" {
 // dtype: 0 = f32, 1 = bf16, 2 = f16 (q, k, v and o alike). D in {16, 32,
 // 64, 128, 256}. Strides are in elements, (batch, head, sequence) for q, k, v in
 // that order; the last dimension is contiguous, and every pointer and
-// stride is 16-byte aligned. o is contiguous (B, H, S, D).
+// stride is 16-byte aligned. o is contiguous (B, H, S, D); lse, where not
+// null, contiguous (B, H, S) f32.
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
-                           int B, int H, int KVH, int S, int D, long long qsB,
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                           int dtype, int B, int H, int KVH, int S, int D, long long qsB,
                            long long qsH, long long qsS, long long ksB, long long ksH,
                            long long ksS, long long vsB, long long vsH, long long vsS,
                            float scale, int causal, void* stream) {
@@ -426,9 +445,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   const long long st[9] = {qsB, qsH, qsS, ksB, ksH, ksS, vsB, vsH, vsS};
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return launch_d<float>(q, k, v, o, B, H, KVH, S, D, st, scale, causal, s);
-    case 1: return launch_d<__nv_bfloat16>(q, k, v, o, B, H, KVH, S, D, st, scale, causal, s);
-    case 2: return launch_d<__half>(q, k, v, o, B, H, KVH, S, D, st, scale, causal, s);
+    case 0: return launch_l<float>(q, k, v, o, lse, B, H, KVH, S, D, st, scale, causal, s);
+    case 1:
+      return launch_l<__nv_bfloat16>(q, k, v, o, lse, B, H, KVH, S, D, st, scale, causal, s);
+    case 2: return launch_l<__half>(q, k, v, o, lse, B, H, KVH, S, D, st, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,7 +16,9 @@ Each kernel package has:
                  replaces bid_top2_pallas with the reference's while_loop
                  (repro.core.auction.auction_phase_step)
   flash_attention  - blocked causal GQA attention (LM prefill); replaces
-                 repro.kernels.flash_attention.kernel.flash_attention_pallas
+                 repro.kernels.flash_attention.kernel.flash_attention_pallas;
+                 its backward (``flash_attention_bwd``, training) replaces
+                 no TPU kernel: a pallas_call has no VJP
   decode_attention - one-token GQA attention against a KV cache (LM
                  decode); replaces
                  repro.kernels.decode_attention.kernel.decode_attention_pallas
@@ -34,18 +36,20 @@ from .auction_bid.kernel_cuda import bid_top2_cuda
 from .auction_phase.kernel_cuda import auction_phase_cuda
 from .costmap.kernel_cuda import costmap_cuda
 from .decode_attention.kernel_cuda import decode_attention_cuda
-from .flash_attention.kernel_cuda import flash_attention_cuda
+from .flash_attention.kernel_cuda import flash_attention_backward_cuda, flash_attention_cuda
 from .rglru_scan.kernel_cuda import rglru_scan_cuda
 from .rwkv6_scan.kernel_cuda import rwkv6_scan_cuda
 
 #: (name, wrapper, CUDA source) of every kernel of the port: the scheduling
 #: path's (the bid, then the phase that fuses it with the loop), the LM
-#: serving path's attention kernels, then the recurrent blocks' scans.
+#: path's attention kernels (flash's backward for training), then the
+#: recurrent blocks' scans.
 KERNELS = (
     ("costmap", costmap_cuda, "costmap.cu"),
     ("auction_bid", bid_top2_cuda, "auction_bid.cu"),
     ("auction_phase", auction_phase_cuda, "auction_phase.cu"),
     ("flash_attention", flash_attention_cuda, "flash_attention.cu"),
+    ("flash_attention_bwd", flash_attention_backward_cuda, "flash_attention_bwd.cu"),
     ("decode_attention", decode_attention_cuda, "decode_attention.cu"),
     ("rglru_scan", rglru_scan_cuda, "rglru_scan.cu"),
     ("rwkv6_scan", rwkv6_scan_cuda, "rwkv6_scan.cu"),

@@ -6,10 +6,13 @@ the kernel (or raises), anything else raises. There is no fallback from
 the kernel to the plain version.
 
 On the card, when an input requires grad, the launch goes through
-`FlashAttention`, whose backward recomputes the plain version under
-autograd: the port of the reference's only differentiable attention (its
-chunked XLA form; a `pallas_call` has no VJP). Inference launches the
-kernel directly.
+`FlashAttention`: its forward also saves each row's log-sum-exp, and its
+backward launches the backward kernel (`csrc/flash_attention_bwd.cu`),
+which recomputes the probabilities tile by tile from it. The reference has
+no such kernel (a `pallas_call` has no VJP; its only differentiable
+attention is the plain XLA form), so on the CPU the backward is autograd
+through `ref.attention_ref`. Inference launches the forward kernel
+directly, without the log-sum-exp.
 """
 
 from __future__ import annotations
@@ -23,23 +26,33 @@ from . import kernel_cuda, ref
 
 
 class FlashAttention(torch.autograd.Function):
-    """``forward_fn(q, k, v, causal=, scale=)`` forward (the kernel on the
-    card), backward by autograd through `ref.attention_ref` on the saved
-    inputs."""
+    """``forward_fn(q, k, v, causal=, scale=)`` forward. On the card
+    (``forward_fn`` the kernel, asked for its log-sum-exp) the backward is
+    the backward kernel on the saved inputs, output and log-sum-exp; on the
+    CPU it is autograd through `ref.attention_ref` on the saved inputs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float, forward_fn):
-        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale = causal, scale
+        if q.device.type == "cuda":
+            out, lse = forward_fn(q, k, v, causal=causal, scale=scale, return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return forward_fn(q, k, v, causal=causal, scale=scale)
 
     @staticmethod
     def backward(ctx, do):
         with obs.span("lm.attn.flash_backward"):
-            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            with torch.enable_grad():
-                out = ref.attention_ref(*inputs, causal=ctx.causal, scale=ctx.scale)
-                dq, dk, dv = torch.autograd.grad(out, inputs, do)
+            saved = ctx.saved_tensors
+            if saved[0].device.type == "cuda":
+                dq, dk, dv = kernel_cuda.flash_attention_backward_cuda(
+                    do, *saved, causal=ctx.causal, scale=ctx.scale)
+            else:
+                inputs = [t.detach().requires_grad_() for t in saved]
+                with torch.enable_grad():
+                    out = ref.attention_ref(*inputs, causal=ctx.causal, scale=ctx.scale)
+                    dq, dk, dv = torch.autograd.grad(out, inputs, do)
         return dq, dk, dv, None, None, None
 
 

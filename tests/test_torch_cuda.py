@@ -1,7 +1,8 @@
 """repro_torch on the card: each CUDA kernel against its plain version on
 the same CUDA tensors (the scheduler's kernels exact: tolerance 0, index
 included; the attention kernels within 2e-5 in f32 and 2e-2 with 16-bit
-inputs, the order of the sums differing; the scans within 1e-5 (RG-LRU)
+inputs, the order of the sums differing; flash's backward within 1e-5 of
+each gradient's largest magnitude in f32; the scans within 1e-5 (RG-LRU)
 and 1e-4 (RWKV-6) in f32, as tests/test_kernels_scans.py), the kernels'
 input checks, a small replay and small serves on CUDA against the same on
 CPU, and two spawned ranks on the card (gloo, host-staged; NCCL where two
@@ -996,7 +997,9 @@ def test_schedule_service_on_the_card_zero_compiles(cuda):
 # --------------------------------------------------------------------- training:
 # gradients through the kernels. Each op on CUDA tensors that require grad
 # launches its kernel in the forward and must give the plain path's
-# gradients (the backward recomputes the plain version); decode raises.
+# gradients: flash's backward is a kernel of its own, RG-LRU's recomputes
+# the plain version, RWKV-6's the plain version chunk by chunk; decode
+# raises.
 
 
 def _grads_through(fn, inputs, cot):
@@ -1008,18 +1011,103 @@ def _grads_through(fn, inputs, cot):
     return [t.grad for t in ins]
 
 
-def test_flash_backward_equals_plain_on_card(cuda):
+# The backward kernel against autograd through the plain version: within
+# FLASH_GRAD_TOL of the larger of each gradient's largest magnitude and 1
+# (at S = 1 dq and dk are 0: one key takes all the weight) in f32 (the two
+# differ by the order of their sums and by P recomputed from the saved
+# log-sum-exp; the CPU twin, tests/test_torch_flash_bwd_twin.py, reads a few
+# 1e-7; one TF32 pass reads ~1e-4 there and misses), 2e-2 with 16-bit inputs
+# (Δ comes from the output as stored).
+FLASH_GRAD_TOL = {"f32": 1e-5, "bf16": 2e-2, "f16": 2e-2}
+
+
+def _grad_err(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().max() / max(float(b.abs().max()), 1.0))
+               for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize(
+    "B,H,KVH,S,D,dt,causal",
+    [
+        (1, 2, 2, 128, 64, "f32", True),
+        (2, 4, 2, 100, 128, "f32", True),  # ragged tail
+        (1, 8, 1, 64, 128, "f32", False),  # MQA, full
+        (2, 4, 2, 1, 16, "f32", True),
+        (2, 4, 2, 257, 32, "bf16", True),
+        (1, 4, 4, 130, 64, "f16", False),
+        (2, 16, 8, 1024, 128, "f32", True),  # qwen3-0.6b per-layer prefill
+        (2, 10, 1, 203, 256, "bf16", True),  # head_dim 256, S not a multiple of the tiles
+        (1, 4, 2, 77, 256, "f16", False),
+        (2, 4, 2, 77, 128, "bf16", True),
+        (1, 10, 1, 2048, 256, "f32", True),  # recurrentgemma-2b per-layer prefill
+        (2, 48, 8, 1024, 128, "f32", True),  # dbrx-132b: G = 6
+        (2, 40, 8, 1024, 128, "f32", True),  # llama4-scout: G = 5
+        (2, 32, 8, 1024, 128, "f32", True),  # llama-3.2-vision: G = 4
+        (1, 16, 8, 4096, 128, "f32", True),  # qwen3-0.6b train-4k's layer at batch 1
+    ],
+)
+def test_flash_backward_equals_plain_on_card(cuda, B, H, KVH, S, D, dt, causal):
+    """The Function's gradients: one forward launch and one backward call
+    (a set of launches), within FLASH_GRAD_TOL of autograd through the
+    plain version, and the same bits from a second backward."""
     from repro_torch.kernels.flash_attention import kernel_cuda, ops, ref
 
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn((2, 4, 96, 64), device=cuda, generator=g)
-    k, v = (torch.randn((2, 2, 96, 64), device=cuda, generator=g) for _ in range(2))
-    cot = torch.randn(q.shape, device=cuda, generator=g)
-    before = kernel_cuda.flash_attention_cuda.launches
-    got = _grads_through(lambda *a: ops.flash_attention(*a), (q, k, v), cot)
-    assert kernel_cuda.flash_attention_cuda.launches == before + 1
+    rng = np.random.default_rng(B * 1000 + S + D)
+    q, k, v, cot = (
+        torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda, _ATT_DTYPES[dt])
+        for shape in ((B, H, S, D), (B, KVH, S, D), (B, KVH, S, D), (B, H, S, D))
+    )
+    fwd, bwd = kernel_cuda.flash_attention_cuda, kernel_cuda.flash_attention_backward_cuda
+    before = fwd.launches, bwd.launches
+    got = _grads_through(lambda *a: ops.flash_attention(*a, causal=causal), (q, k, v), cot)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    again = _grads_through(lambda *a: ops.flash_attention(*a, causal=causal), (q, k, v), cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = _grads_through(lambda *a: ref.attention_ref(*a, causal=causal), (q, k, v), cot)
+    assert all(a.dtype == b.dtype and a.shape == b.shape for a, b in zip(got, want))
+    assert _grad_err(got, want) <= FLASH_GRAD_TOL[dt]
+
+
+def test_flash_backward_one_tf32_pass_misses_the_tolerance(cuda):
+    """The plain version with its products in TF32 misses FLASH_GRAD_TOL at
+    train-4k's layer shape (batch 1), where the kernel meets it."""
+    from repro_torch.kernels.flash_attention import ref
+
+    rng = np.random.default_rng(7)
+    q, k, v, cot = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda)
+                    for shape in ((1, 16, 4096, 128), (1, 8, 4096, 128), (1, 8, 4096, 128),
+                                  (1, 16, 4096, 128)))
     want = _grads_through(lambda *a: ref.attention_ref(*a), (q, k, v), cot)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _grads_through(lambda *a: ref.attention_ref(*a), (q, k, v), cot)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert _grad_err(tf32, want) > FLASH_GRAD_TOL["f32"]
+
+
+def test_flash_backward_takes_strided_heads_and_odd_head_dims(cuda):
+    """q, k, v as the (B, S, H, D) -> (B, H, S, D) views the blocks pass,
+    a cotangent that is not contiguous, and head_dim 42 (zero-padded to 64
+    as the forward pads it)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    rng = np.random.default_rng(12)
+    for D in (64, 42):
+        B, S, H, KVH = 2, 96, 4, 2
+        q = torch.from_numpy(rng.normal(0, 1, (B, S, H, D)).astype(np.float32)).to(cuda)
+        kv = torch.from_numpy(rng.normal(0, 1, (B, S, 2 * KVH, D)).astype(np.float32)).to(cuda)
+        cot = torch.from_numpy(rng.normal(0, 1, (B, S, H, D)).astype(np.float32)).to(cuda)
+
+        def views(q, kv):
+            return q.transpose(1, 2), kv[:, :, :KVH].transpose(1, 2), kv[:, :, KVH:].transpose(1, 2)
+
+        got = _grads_through(lambda q, kv: ops.flash_attention(*views(q, kv)), (q, kv),
+                             cot.transpose(1, 2))
+        want = _grads_through(lambda q, kv: ref.attention_ref(*views(q, kv)), (q, kv),
+                              cot.transpose(1, 2))
+        assert _grad_err(got, want) <= FLASH_GRAD_TOL["f32"]
 
 
 def test_rglru_backward_equals_plain_on_card(cuda):

@@ -74,9 +74,11 @@ def tc_product(a: torch.Tensor, b: torch.Tensor, a_exact: bool, b_exact: bool,
     return out + a_big @ b_big
 
 
-def twin_attention(q, k, v, *, causal=True, scale=None, passes=3):
+def twin_attention(q, k, v, *, causal=True, scale=None, passes=3, return_lse=False):
     """The kernel's tile loop on the CPU: (B, H, S, D) x (B, KVH, S, D)
-    -> float32 (B, H, S, D) (before the cast to q's dtype)."""
+    -> float32 (B, H, S, D) (before the cast to q's dtype); with
+    ``return_lse`` also each row's log-sum-exp m + log(l), (B, H, S), the
+    kernel's optional output for the backward."""
     B, H, S, D = q.shape
     G = H // k.shape[1]
     warps, BK = kernel_tiles()[D]
@@ -85,6 +87,7 @@ def twin_attention(q, k, v, *, causal=True, scale=None, passes=3):
     exact = q.dtype != torch.float32  # bf16/f16 values are exact in TF32
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.empty(B, H, S, D)
+    lse = torch.empty(B, H, S)
     for b in range(B):
         for h in range(H):
             kh, vh = kf[b, h // G], vf[b, h // G]
@@ -110,7 +113,8 @@ def twin_attention(q, k, v, *, causal=True, scale=None, passes=3):
                     acc = acc * alpha[:, None] + tc_product(p, vh[keys], False, exact, passes)
                     m = m_new
                 out[b, h, rows] = acc / l[:, None]  # every row has key 0: l > 0
-    return out
+                lse[b, h, rows] = m + torch.log(l)
+    return (out, lse) if return_lse else out
 
 
 def _inputs(seed, B, H, KVH, S, D, dtype=np.float32):
@@ -177,6 +181,21 @@ def test_one_tf32_pass_misses_the_f32_tolerance(D):
     want = ref_fa.attention_ref(*(jnp.asarray(a) for a in arrays), causal=True)
     _close(twin_attention(q, k, v), want)
     assert _misses(twin_attention(q, k, v, passes=1), want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,D", [(100, 64), (37, 256)])
+def test_twin_lse_equals_logsumexp_of_the_plain_logits(S, D, causal):
+    """The forward's log-sum-exp output (m + log(l) per row, from the same
+    tiles as the output) against logsumexp of the plain version's scaled,
+    masked float32 logits."""
+    _, (q, k, v) = _inputs(S + D + 7, 2, 6, 2, S, D)
+    out, lse = twin_attention(q, k, v, causal=causal, scale=0.09, return_lse=True)
+    assert torch.equal(out, twin_attention(q, k, v, causal=causal, scale=0.09))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, torch.repeat_interleave(k, 3, dim=1)) * 0.09
+    if causal:
+        logits = logits.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), float("-inf"))
+    _close(lse, torch.logsumexp(logits, dim=-1).numpy())
 
 
 def test_tf32_rounding_and_split():

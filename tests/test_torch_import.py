@@ -187,7 +187,7 @@ def test_cpu_tensors_take_plain_versions():
     assert assigned.dtype == torch.int32 and (assigned >= 0).all() and iters > 0
     assert kernels.launch_counts() == {
         "costmap": 0, "auction_bid": 0, "auction_phase": 0, "flash_attention": 0,
-        "decode_attention": 0, "rglru_scan": 0, "rwkv6_scan": 0,
+        "flash_attention_bwd": 0, "decode_attention": 0, "rglru_scan": 0, "rwkv6_scan": 0,
     }
 
 
@@ -247,10 +247,15 @@ def test_scan_wrappers_refuse_cpu_tensors():
 
 def test_attention_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.decode_attention.kernel_cuda import decode_attention_cuda
-    from repro_torch.kernels.flash_attention.kernel_cuda import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel_cuda import (
+        flash_attention_backward_cuda,
+        flash_attention_cuda,
+    )
 
     x = torch.zeros((1, 2, 8, 16))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_backward_cuda(x, x, x, x, x, torch.zeros((1, 2, 8)))
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_cuda(x[:, :, 0], x, x, torch.ones(1, dtype=torch.int32))
