@@ -13,8 +13,8 @@ from the seed before the batch is sent). For an MoE model it also keeps a
 copy of what the port's dispatch returns (each group's experts in sorted
 order and the sort's permutation), so that the reference can follow the
 routing the program chose and hold each choice to its own router scores
-(see PERF.md); a run whose dispatch records do not come one a layer a
-step stops without a result.
+(see PERF.md); a run whose dispatch records do not come one an MoE layer
+a step stops without a result.
 """
 
 from __future__ import annotations
@@ -25,9 +25,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from harness import traffic as tr
-from harness.counts import is_moe
-from harness import weights
+from harness import kinds, traffic as tr, weights
 from harness.bench import (Run, check_layout, percentile, profiled, program_arch, span,
                            synchronize)
 
@@ -92,7 +90,7 @@ def setup(run: Run) -> Dict[str, Any]:
     lm = LM(program_arch(a))
     params = weights.make(a, run.seed, run.device)
     check_layout(lm, params)
-    hooks = _Hooks(lm, run.device, is_moe(a))
+    hooks = _Hooks(lm, run.device, kinds.has(a, "moe"))
     serve = serve_batch
     if "alter_token" in run.faults:
         def serve(*args, **kw):
@@ -158,8 +156,8 @@ def measure(run: Run, prog: Dict[str, Any], cycles: int = 0) -> None:
 
 def _routes_of(run: Run, b: Dict[str, Any], row: int) -> List[torch.Tensor]:
     """The experts the program chose for request ``row`` of batch ``b``,
-    per layer: (P + gen - 1, K), in the order the router ranked them."""
-    L, K = run.arch["n_layers"], run.arch["experts_per_token"]
+    per MoE layer: (P + gen - 1, K), in the order the router ranked them."""
+    L, K = kinds.layers(run.arch).count("moe"), run.arch["experts_per_token"]
     P, B = b["P"], b["B"]
     recs = b["routes"]
     want = [B * P * K] + [B * K] * (b["gen"] - 1)
@@ -167,8 +165,8 @@ def _routes_of(run: Run, b: Dict[str, Any], row: int) -> List[torch.Tensor]:
             e.numel() != want[n // L] or e.shape != o.shape for n, (e, o) in enumerate(recs)):
         raise RuntimeError(
             f"the MoE dispatch was recorded {len(recs)} times with shapes "
-            f"{sorted({tuple(e.shape) for e, _ in recs})}; the check needs one record a layer "
-            f"a step ({L * b['gen']}), of {want[0]} prefill and {want[-1]} decode choices")
+            f"{sorted({tuple(e.shape) for e, _ in recs})}; the check needs one record an MoE "
+            f"layer a step ({L * b['gen']}), of {want[0]} prefill and {want[-1]} decode choices")
     out = []
     for l in range(L):
         rows = []
@@ -197,7 +195,7 @@ def sample(run: Run) -> List[tuple]:
 
 
 def _numbers(a, params, prompt, served, logits, routes, P: int, B: int,
-             groups: int) -> Dict[str, float]:
+             config: Dict[str, Any]) -> Dict[str, float]:
     """One request's numbers: the float32 reference follows the served
     sequence (and the routing it was served with) and judges the served
     tokens (``gap``), the logits they were chosen from (``logit_err``) and
@@ -206,7 +204,7 @@ def _numbers(a, params, prompt, served, logits, routes, P: int, B: int,
 
     seq = torch.cat([prompt, served[:-1]])
     with torch.no_grad(), ref.precision("f32"):
-        ref_logits, rlog, _ = ref.serve(a, params, seq, P, B, groups, routes)
+        ref_logits, rlog, _ = ref.serve(a, params, seq, P, B, config, routes)
     out = {"gap": check.served_gap(ref_logits, served),
            "logit_err": check.logit_err(ref_logits, logits)}
     if routes is not None:
@@ -221,9 +219,8 @@ def compare(run: Run, params, control: bool = False) -> Dict[str, Dict[str, floa
     with its own routing, and judged by the same numbers."""
     from reference import lm as ref
 
-    a = run.arch
-    moe = is_moe(a)
-    groups = run.cell.config.get("moe_groups", 64)
+    a, config = run.arch, run.cell.config
+    moe = kinds.has(a, "moe")
     out: Dict[str, Dict[str, float]] = {}
 
     def fold(mode, got):
@@ -240,13 +237,13 @@ def compare(run: Run, params, control: bool = False) -> Dict[str, Dict[str, floa
                                  device=run.device)
         logits = torch.stack([step[b["rows"].index(row)] for step in b["logits"]])
         routes = _routes_of(run, b, row) if moe else None
-        fold("f32", _numbers(a, params, prompt, served, logits, routes, b["P"], b["B"], groups))
+        fold("f32", _numbers(a, params, prompt, served, logits, routes, b["P"], b["B"], config))
         if control:
             with torch.no_grad(), ref.precision("tf32"):
                 c_served, c_logits, c_routes = ref.serve_greedy(a, params, prompt, b["gen"],
-                                                                b["B"], groups)
+                                                                b["B"], config)
             fold("tf32", _numbers(a, params, prompt, c_served, c_logits, c_routes, b["P"],
-                                  b["B"], groups))
+                                  b["B"], config))
     return out
 
 

@@ -121,7 +121,7 @@ def reference_readings(run: Run, mode: str = "f32", rows=None) -> dict:
             tok = _batch(run, i)
             if rows is not None:
                 tok = tok[rows]
-            loss = ref.train_loss(run.arch, tree, tok, remat=t["remat"])
+            loss = ref.train_loss(run.arch, tree, tok, remat=t["remat"], config=run.cell.config)
             grads = torch.autograd.grad(loss, flat)
             losses.append(float(loss.detach()))
             ref.adamw_step(flat, list(grads), mu, nu, i + 1, t["optimizer"])

@@ -1,2 +1,3 @@
 """The benchmark's harness: cell data, weights and traffic from the seed,
-the trace reader, the peaks and the work counts."""
+the trace reader, the peaks, the work counts and the arithmetic of each
+layer kind (`harness.kinds`)."""

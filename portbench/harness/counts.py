@@ -2,7 +2,9 @@
 
 FLOPs count multiply-adds as 2 and products only: the matrix products of
 the model (attention projections, the FFN or the experts a token is routed
-to, the router, the head) and attention's two products. Nothing an
+to, the router, the head) and attention's two products. A model's counts
+are its layers' summed kind by kind (`harness/kinds/<kind>.py`), and
+the embedding's, final norm's and head's. Nothing an
 implementation recomputes (remat) or pads (capacity slots) counts. Causal
 attention counts the S (S + 1) / 2 pairs it needs. Bytes count each input
 read once and each output written once, at the dtype the configuration
@@ -16,6 +18,8 @@ different quantity.
 from __future__ import annotations
 
 from typing import Any, Dict, Iterable
+
+from . import kinds
 
 F32 = 4
 BF16 = 2
@@ -32,25 +36,8 @@ def expert_params(a: Dict[str, Any]) -> int:
     return 3 * a["d_model"] * a["d_ff"]
 
 
-def is_moe(a: Dict[str, Any]) -> bool:
-    return tuple(a["pattern"]) == ("moe",)
-
-
-def layer_product_params(a: Dict[str, Any]) -> int:
-    """Product parameters one token meets in one layer (routed experts only)."""
-    if is_moe(a):
-        return (attn_params(a) + a["d_model"] * a["n_experts"]
-                + a["experts_per_token"] * expert_params(a))
-    return attn_params(a) + expert_params(a)
-
-
 def head_params(a: Dict[str, Any]) -> int:
     return a["d_model"] * a["vocab_size"]
-
-
-def product_params(a: Dict[str, Any]) -> int:
-    """Product parameters one token meets in a forward pass with logits."""
-    return a["n_layers"] * layer_product_params(a) + head_params(a)
 
 
 def attention_flops(B: int, H: int, S: int, D: int, causal: bool = True) -> float:
@@ -59,18 +46,34 @@ def attention_flops(B: int, H: int, S: int, D: int, causal: bool = True) -> floa
     return 4.0 * B * H * D * pairs
 
 
+def _over_layers(a: Dict[str, Any], per_layer):
+    """``per_layer(kind)`` summed over the model's layers, kind by kind."""
+    return sum(n * per_layer(kind) for kind, n in kinds.census(a))
+
+
+def layers_product_params(a: Dict[str, Any]) -> int:
+    """Product parameters one token meets in all the layers (routed experts
+    only)."""
+    return _over_layers(a, lambda k: k.product_params(a))
+
+
+def product_params(a: Dict[str, Any]) -> int:
+    """Product parameters one token meets in a forward pass with logits."""
+    return layers_product_params(a) + head_params(a)
+
+
 def train_step_flops(a: Dict[str, Any], B: int, S: int, causal: bool = True) -> float:
     """Model flops of a train step: 6 x product parameters x tokens, plus
     attention's forward and backward (3 x its forward)."""
-    attn = a["n_layers"] * attention_flops(B, a["n_heads"], S, a["head_dim"], causal)
+    attn = _over_layers(a, lambda k: k.attention_flops(a, B, S, causal))
     return 6.0 * product_params(a) * B * S + 3.0 * attn
 
 
 def prefill_flops(a: Dict[str, Any], B: int, P: int, causal: bool = True) -> float:
     """Forward flops of a prefill: every layer on every prompt token, the
     head on the last position of each prompt."""
-    body = 2.0 * a["n_layers"] * layer_product_params(a) * B * P
-    attn = a["n_layers"] * attention_flops(B, a["n_heads"], P, a["head_dim"], causal)
+    body = 2.0 * layers_product_params(a) * B * P
+    attn = _over_layers(a, lambda k: k.attention_flops(a, B, P, causal))
     return body + attn + 2.0 * head_params(a) * B
 
 
@@ -78,25 +81,18 @@ def decode_step_flops(a: Dict[str, Any], contexts: Iterable[int]) -> float:
     """One decode step: each row's token through every layer and the head,
     attending over its ``context`` valid positions (its own included)."""
     contexts = list(contexts)
-    per_pos = 4.0 * a["n_heads"] * a["head_dim"] * a["n_layers"]
+    per_pos = _over_layers(a, lambda k: k.attention_flops(a, 1, 1))
     return 2.0 * product_params(a) * len(contexts) + per_pos * sum(contexts)
 
 
 def decode_step_bytes(a: Dict[str, Any], contexts: Iterable[int]) -> float:
-    """Bytes one decode step must move: the weights it reads (of an MoE
-    layer, every expert's), the embedding rows, the valid bf16 cache read
-    and its new K/V written, and the float32 logits written."""
+    """Bytes one decode step must move: each layer's (its weights, of an MoE
+    layer every expert's, and its cache's reads and writes), the final
+    norm, the head, the embedding rows, and the float32 logits written."""
     contexts = list(contexts)
-    B, L, D = len(contexts), a["n_layers"], a["d_model"]
-    kv = a["n_kv_heads"] * a["head_dim"]
-    norms = 2 * D + (2 * a["head_dim"] if a.get("qk_norm") else 0)
-    weights = L * (attn_params(a) + norms) + D + head_params(a)
-    if is_moe(a):
-        weights += L * (D * a["n_experts"] + expert_params(a) * a["n_experts"])
-    else:
-        weights += L * expert_params(a)
-    cache = 2 * L * kv * BF16 * (sum(contexts) + B)
-    return F32 * (weights + B * D + B * a["vocab_size"]) + cache
+    B, D = len(contexts), a["d_model"]
+    layers = _over_layers(a, lambda k: k.decode_bytes(a, contexts))
+    return layers + F32 * (D + head_params(a) + B * D + B * a["vocab_size"])
 
 
 def flash_call(B: int, H: int, KVH: int, S: int, D: int, itemsize: int = F32):

@@ -2,7 +2,8 @@
 
 `layout` lists the model's tensors from the configuration's ``arch``
 fields alone: the port's nested-dict keys and shapes (each pattern
-position's tensors stacked along a leading layer axis), which the driver
+position's tensors stacked along a leading layer axis, each remainder
+layer's alone; `harness.kinds`), which the driver
 holds equal to the port's own `param_specs` before it hands the tensors
 over. `make` fills one flat buffer with normal draws of a generator on
 the device, a chunk of 2**28 at a time, and scales each tensor's view in
@@ -18,48 +19,24 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from . import kinds
+
 Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], float]  # (path, shape, scale)
 
 CHUNK = 1 << 28
-NORM_SCALE = 0.1
 
 
 def layout(arch: Dict[str, Any]) -> List[Leaf]:
-    """(path, shape, scale) of every tensor, in a fixed order."""
-    D, V, L = arch["d_model"], arch["vocab_size"], arch["n_layers"]
-    H, KVH, hd, F = arch["n_heads"], arch["n_kv_heads"], arch["head_dim"], arch["d_ff"]
-    (kind,) = arch["pattern"]
-    pos = ("blocks", f"pos0_{kind}")
+    """(path, shape, scale) of every tensor, in a fixed order: the
+    embedding, each pattern position's layers stacked, each remainder
+    layer, the final norm, the head. A layer's tensors are its kind's
+    (`harness/kinds/<kind>.py`)."""
+    D, V = arch["d_model"], arch["vocab_size"]
     out: List[Leaf] = [(("embed",), (V, D), D ** -0.5)]
-
-    def mat(path, shape):
-        out.append((pos + path, (L,) + shape, shape[-2] ** -0.5))
-
-    def vec(path, n):
-        out.append((pos + path, (L, n), NORM_SCALE))
-
-    vec(("norm_attn",), D)
-    mat(("attn", "wq"), (D, H * hd))
-    mat(("attn", "wk"), (D, KVH * hd))
-    mat(("attn", "wv"), (D, KVH * hd))
-    mat(("attn", "wo"), (H * hd, D))
-    if arch.get("qk_norm"):
-        vec(("attn", "q_norm"), hd)
-        vec(("attn", "k_norm"), hd)
-    vec(("norm_ffn",), D)
-    if kind == "dense":
-        mat(("ffn", "w1"), (D, F))
-        mat(("ffn", "w2"), (F, D))
-        mat(("ffn", "w3"), (D, F))
-    elif kind == "moe":
-        E = arch["n_experts"]
-        mat(("moe", "router"), (D, E))
-        mat(("moe", "we1"), (E, D, F))
-        mat(("moe", "we2"), (E, F, D))
-        mat(("moe", "we3"), (E, D, F))
-    else:
-        raise ValueError(f"no weight layout for layer kind {kind!r}")
-    out.append((("final_norm",), (D,), NORM_SCALE))
+    for prefix, kind, lead in kinds.positions(arch):
+        out += [(prefix + path, lead + shape, scale)
+                for path, shape, scale in kinds.load(kind).layout(arch)]
+    out.append((("final_norm",), (D,), kinds.NORM_SCALE))
     if not arch.get("tie_embeddings"):
         out.append((("head",), (D, V), D ** -0.5))
     return out

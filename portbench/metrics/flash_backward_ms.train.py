@@ -1,7 +1,7 @@
 """flash_backward_ms.train: the device time of the operations launched
 inside the program's ``lm.attn.flash_backward`` spans (flash attention's
-plain backward, autograd through the (B, H, S, S) scores), per step of the
-window (`harness.program_trace`)."""
+backward kernel, `csrc/flash_attention_bwd.cu`: its delta, dQ and dK/dV
+launches), per step of the window (`harness.program_trace`)."""
 
 from harness import program_trace
 

@@ -3,10 +3,12 @@
 Float32 products with TF32 off, written from the equations: RMSNorm in
 the ``(1 + scale)`` form, rotary embeddings on the two halves of a head,
 grouped-query attention as two products and a softmax over a causal mask,
-a SwiGLU FFN, and the token-choice mixture of experts with group-local
-capacity (each group's (token, choice) pairs, in token-then-choice order,
-fill their expert's ``cap`` slots; the rest are dropped). No kernel, no
-cache, no batching: a serving sample is one request's whole sequence.
+a SwiGLU FFN. Each kind of layer is a block of its own,
+``reference/kinds/<kind>.py`` (`kind`), found by the name the
+configuration's pattern gives it; this file walks the layers in the
+port's order (`layers`) and holds the embedding, the head, the loss and
+the parts that several kinds share. No kernel, no cache, no batching: a
+serving sample is one request's whole sequence.
 The configuration's bfloat16 decode cache is the one departure from a
 float32 forward that the reference reproduces: queries at decode positions
 attend to keys and values rounded to bfloat16, as the cache holds them;
@@ -22,7 +24,9 @@ Nothing here imports the program or anything of the JAX package.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Optional, Tuple
+import dataclasses
+import importlib
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,14 +116,59 @@ def attend(q, k, v, q_offset: int):
     return mm(torch.softmax(s, dim=-1), v)
 
 
-def layer_params(params: Dict[str, Any], l: int) -> Dict[str, Any]:
-    """Layer ``l``'s tensors out of the stacked blocks."""
-    (block,) = params["blocks"].values()
+def kind(name: str):
+    """The reference block of a layer kind, ``reference/kinds/<name>.py``:
+    ``forward(a, p, x, ps)`` on a whole sequence x (B, S, D) and ``step(a,
+    p, x, pos0, state, ps)`` on positions pos0.. over the layer's cached
+    ``state`` (a dict the block keeps between calls), each returning the
+    layer's output; ``ps`` is the pass's `Pass`."""
+    module = f"{__package__}.kinds.{name}"
+    try:
+        if not name.isidentifier():
+            raise ModuleNotFoundError(name=module)
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise ValueError(f"no reference block for layer kind {name!r}: add "
+                         f"portbench/reference/kinds/{name}.py") from None
 
-    def pick(t):
-        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) else t[l]
 
-    return pick(block)
+def layers(a: Dict[str, Any], params: Dict[str, Any]) -> List[Tuple[Any, Dict[str, Any]]]:
+    """(kind's block, tensors) of every layer in the order the port runs
+    them: each superblock's pattern positions (layer l of each stacked
+    ``blocks.pos{i}_{kind}``), then the remainder ``rem{j}_{kind}``."""
+    pattern, L = list(a["pattern"]), a["n_layers"]
+
+    def pick(t, l):
+        return {k: pick(v, l) for k, v in t.items()} if isinstance(t, dict) else t[l]
+
+    out = [(kind(k), pick(params["blocks"][f"pos{i}_{k}"], l))
+           for l in range(L // len(pattern)) for i, k in enumerate(pattern)]
+    return out + [(kind(k), params[f"rem{j}_{k}"])
+                  for j, k in enumerate(pattern[:L % len(pattern)])]
+
+
+@dataclasses.dataclass
+class Pass:
+    """What the layers of one pass share.
+
+    ``prompt_len`` P: serving's prompt; the positions after it were decode
+    steps, whose queries read K/V rounded to the cache's bfloat16 (None:
+    training, every position a prompt's). ``batch``: the rows the program
+    ran together, whose tokens a layer that groups tokens grouped with
+    this request's. ``config``: the configuration's file, for keys a kind
+    reads. ``given``: the choices a choosing layer (an MoE's router) is to
+    follow in place of its own, one entry a layer in layer order (None:
+    its own). ``records``: where such a layer appends (its scores, what it
+    chose), one entry a layer (None: nowhere).
+    """
+
+    prompt_len: Optional[int] = None
+    batch: int = 1
+    config: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    given: Optional[Iterator[torch.Tensor]] = None
+    records: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
 
 
 def _qkv(a, p, x, positions):
@@ -150,68 +199,28 @@ def attention_block(a, p, x, prompt_len: Optional[int] = None):
     return mm(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
 
 
+def attention_step(a, p, x, pos0: int, state: Dict[str, Any]):
+    """A layer's pre-norm causal self-attention and its residual, on x (1,
+    S, D) at positions pos0 .. pos0 + S - 1 over the K/V that ``state``
+    caches: at pos0 = 0 (the prompt) its own K/V in float32, after it the
+    cache's K/V rounded to bfloat16."""
+    S = x.shape[1]
+    q, k, v = _qkv(a, p["attn"], rms_norm(x, p["norm_attn"], a["norm_eps"]),
+                   torch.arange(pos0, pos0 + S, device=x.device))
+    if pos0 == 0:
+        state["kv"] = [k, v]
+        o = attend(q, k, v, 0)
+    else:
+        state["kv"] = [torch.cat([state["kv"][0], k], 2), torch.cat([state["kv"][1], v], 2)]
+        o = attend(q, *(t.to(torch.bfloat16).float() for t in state["kv"]), pos0)
+    return x + mm(o.transpose(1, 2).reshape(1, S, -1), p["attn"]["wo"])
+
+
 def ffn(p, x):
     return mm(F.silu(mm(x, p["w1"])) * mm(x, p["w3"]), p["w2"])
 
 
-# ------------------------------------------------------------------ MoE
-
-
-def largest_divisor_leq(n: int, cap: int) -> int:
-    return next(g for g in range(min(cap, n), 0, -1) if n % g == 0)
-
-
-def capacity(a: Dict[str, Any], group: int) -> int:
-    K, E = a["experts_per_token"], a["n_experts"]
-    return min(int(a["moe_capacity_factor"] * group * K / E) + 1, group * K)
-
-
-def route(a, router_logits: torch.Tensor) -> torch.Tensor:
-    """(T, K) experts of each token: the top K of the softmax, ties to the
-    lower index."""
-    probs = torch.softmax(router_logits, dim=-1)
-    return torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :a["experts_per_token"]]
-
-
-def kept(a, choice: torch.Tensor, group: int) -> torch.Tensor:
-    """(T, K) bool: which (token, choice) pairs fit their expert's capacity
-    in their group of ``group`` consecutive tokens."""
-    T, K = choice.shape
-    E = a["n_experts"]
-    flat = choice.reshape(T // group, group * K)
-    onehot = F.one_hot(flat, E)
-    slot = (onehot.cumsum(dim=1) - 1).gather(2, flat[..., None])[..., 0]
-    return (slot < capacity(a, group)).reshape(T, K)
-
-
-def moe(a, p, x: torch.Tensor, group: int, choice: Optional[torch.Tensor] = None):
-    """x (T, D) -> (T, D), tokens in groups of ``group``. ``choice`` (T, K):
-    experts to use in place of the reference's own top K (see `serve`).
-    Returns (out, router logits, the choice used)."""
-    logits = mm(x, p["router"]).float()
-    if choice is None:
-        choice = route(a, logits)
-    gates = torch.softmax(logits, dim=-1).gather(1, choice)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    keep = kept(a, choice, group)
-    out = torch.zeros_like(x)
-    for e in range(a["n_experts"]):
-        tok, k = torch.nonzero((choice == e) & keep, as_tuple=True)
-        if tok.numel() == 0:
-            continue
-        xe = x[tok]
-        h = F.silu(mm(xe, p["we1"][e])) * mm(xe, p["we3"][e])
-        out.index_add_(0, tok, mm(h, p["we2"][e]) * gates[tok, k][:, None])
-    return out, logits, choice
-
-
 # ------------------------------------------------------------------ model
-
-
-def _block(a, p, x, prompt_len=None):
-    """A dense block on x (B, S, D)."""
-    x = x + attention_block(a, p["attn"], rms_norm(x, p["norm_attn"], a["norm_eps"]), prompt_len)
-    return x + ffn(p["ffn"], rms_norm(x, p["norm_ffn"], a["norm_eps"]))
 
 
 def head(a, params, h):
@@ -219,14 +228,16 @@ def head(a, params, h):
     return mm(h, w).float()
 
 
-def train_loss(a, params, tokens: torch.Tensor, remat: bool = True, chunk: int = 2048):
-    """Mean next-token cross-entropy of a dense model over (B, S) tokens,
-    the last position of each row unscored. ``remat`` recomputes each layer
-    and each chunk of the loss in the backward (memory only)."""
+def train_loss(a, params, tokens: torch.Tensor, remat: bool = True, chunk: int = 2048,
+               config: Optional[Dict[str, Any]] = None):
+    """Mean next-token cross-entropy over (B, S) tokens, the last position
+    of each row unscored. ``remat`` recomputes each layer and each chunk of
+    the loss in the backward (memory only). ``config``: see `Pass`."""
+    ps = Pass(config=config or {})
     x = params["embed"][tokens.long()]
-    for l in range(a["n_layers"]):
-        p = layer_params(params, l)
-        x = checkpoint(_block, a, p, x, use_reentrant=False) if remat else _block(a, p, x)
+    for block, p in layers(a, params):
+        x = (checkpoint(block.forward, a, p, x, ps, use_reentrant=False) if remat
+             else block.forward(a, p, x, ps))
     h = rms_norm(x, params["final_norm"], a["norm_eps"])
     B, S, _ = h.shape
     tgt = tokens[:, 1:].long()
@@ -244,107 +255,52 @@ def train_loss(a, params, tokens: torch.Tensor, remat: bool = True, chunk: int =
     return total / (B * (S - 1))
 
 
-def _prefill_group(a, batch: int, prompt_len: int, moe_groups: int) -> int:
-    """Tokens in each MoE group of a prefill of ``batch`` x ``prompt_len``
-    tokens (the largest divisor up to ``moe_groups`` of groups of
-    consecutive tokens), checked not to straddle requests."""
-    P = prompt_len
-    g_pre = batch * P // largest_divisor_leq(batch * P, moe_groups)
-    g_dec = batch // largest_divisor_leq(batch, moe_groups)
-    if tuple(a["pattern"]) == ("moe",) and (P % g_pre or g_dec != 1):
-        raise ValueError(f"MoE groups of {g_pre} prompt / {g_dec} decode tokens straddle "
-                         f"requests (P = {P}, batch = {batch})")
-    return g_pre
-
-
-def serve(a, params, tokens: torch.Tensor, prompt_len: int, batch: int, moe_groups: int = 64,
-          routes: Optional[List[torch.Tensor]] = None):
+def serve(a, params, tokens: torch.Tensor, prompt_len: int, batch: int,
+          config: Optional[Dict[str, Any]] = None, routes: Optional[List[torch.Tensor]] = None):
     """One request as served: ``tokens`` (S,) its prompt and the served
     tokens but the last, ``prompt_len`` P, served in a batch of ``batch``
-    rows. Returns (logits (S - P + 1, V) at positions P - 1 .. S - 1, the
-    router logits (layer list of (S, E)) and choices used, or Nones).
-
-    An MoE layer groups the prompt's tokens as the batch's prefill did
-    (``batch`` x P tokens in the largest divisor up to ``moe_groups`` of
-    groups of consecutive tokens, which must not straddle requests) and
-    each decode position with the other rows of its step. ``routes`` (per
-    layer, (S, K)) are experts to use in place of the reference's own top K.
-    """
-    S, P = tokens.shape[0], prompt_len
-    moe_layer = tuple(a["pattern"]) == ("moe",)
-    g_pre = _prefill_group(a, batch, P, moe_groups)
+    rows. Returns (logits (S - P + 1, V) at positions P - 1 .. S - 1, and
+    per choosing layer (an MoE's router) its scores (S, E) and the choices
+    used (S, K), or Nones). ``routes`` (per choosing layer, (S, K)) are
+    choices to use in place of the reference's own; ``config``: see
+    `Pass`."""
+    ps = Pass(prompt_len, batch, config or {}, None if routes is None else iter(routes), [])
     x = params["embed"][tokens.long()][None]
-    router_logits, choices = [], []
-    for l in range(a["n_layers"]):
-        p = layer_params(params, l)
-        if not moe_layer:
-            x = _block(a, p, x, P)
-            continue
-        x = x + attention_block(a, p["attn"], rms_norm(x, p["norm_attn"], a["norm_eps"]), P)
-        xn = rms_norm(x, p["norm_ffn"], a["norm_eps"])[0]
-        given = routes[l] if routes is not None else None
-        pre, lg_pre, ch_pre = moe(a, p["moe"], xn[:P], g_pre,
-                                  None if given is None else given[:P])
-        parts, lgs, chs = [pre], [lg_pre], [ch_pre]
-        if S > P:
-            dec, lg_dec, ch_dec = moe(a, p["moe"], xn[P:], 1,
-                                      None if given is None else given[P:])
-            parts.append(dec)
-            lgs.append(lg_dec)
-            chs.append(ch_dec)
-        x = x + torch.cat(parts)[None]
-        router_logits.append(torch.cat(lgs))
-        choices.append(torch.cat(chs))
-    h = rms_norm(x[0, P - 1:], params["final_norm"], a["norm_eps"])
-    return head(a, params, h), (router_logits or None), (choices or None)
+    for block, p in layers(a, params):
+        x = block.forward(a, p, x, ps)
+    h = rms_norm(x[0, prompt_len - 1:], params["final_norm"], a["norm_eps"])
+    scores = [r[0] for r in ps.records] or None
+    return head(a, params, h), scores, [r[1] for r in ps.records] or None
 
 
-def serve_greedy(a, params, prompt: torch.Tensor, gen: int, batch: int, moe_groups: int = 64):
+def serve_greedy(a, params, prompt: torch.Tensor, gen: int, batch: int,
+                 config: Optional[Dict[str, Any]] = None):
     """The reference as the server of one request: ``gen`` greedy tokens
-    after ``prompt`` (P,), one position at a time over a cache of the K/V
-    (read rounded to bfloat16 at decode positions, as the configuration's
-    cache holds them), an MoE layer routing by its own top K, its prompt
-    grouped as `serve` groups it. Returns (tokens (gen,), the logits each
-    was chosen from (gen, V), and per layer the experts used at positions
-    0 .. P + gen - 2 ((P + gen - 1, K)), or None)."""
-    P, L, eps = prompt.shape[0], a["n_layers"], a["norm_eps"]
-    moe_layer = tuple(a["pattern"]) == ("moe",)
-    g_pre = _prefill_group(a, batch, P, moe_groups)
-    kv: List[List[torch.Tensor]] = []
-    choices: List[List[torch.Tensor]] = [[] for _ in range(L)]
-
-    def layer(l, x, pos0):
-        p = layer_params(params, l)
-        S = x.shape[1]
-        q, k, v = _qkv(a, p["attn"], rms_norm(x, p["norm_attn"], eps),
-                       torch.arange(pos0, pos0 + S, device=x.device))
-        if pos0 == 0:
-            kv.append([k, v])
-            o = attend(q, k, v, 0)
-        else:
-            kv[l] = [torch.cat([kv[l][0], k], 2), torch.cat([kv[l][1], v], 2)]
-            o = attend(q, *(t.to(torch.bfloat16).float() for t in kv[l]), pos0)
-        x = x + mm(o.transpose(1, 2).reshape(1, S, -1), p["attn"]["wo"])
-        xn = rms_norm(x, p["norm_ffn"], eps)
-        if not moe_layer:
-            return x + ffn(p["ffn"], xn)
-        out, _, ch = moe(a, p["moe"], xn[0], g_pre if pos0 == 0 else 1)
-        choices[l].append(ch)
-        return x + out[None]
+    after ``prompt`` (P,), one position at a time over each layer's cached
+    state (K/V read rounded to bfloat16 at decode positions, as the
+    configuration's cache holds them), a choosing layer by its own choice,
+    the prompt's tokens grouped as `serve` groups them. Returns (tokens
+    (gen,), the logits each was chosen from (gen, V), and per choosing
+    layer the choices made at positions 0 .. P + gen - 2 ((P + gen - 1,
+    K)), or None)."""
+    P = prompt.shape[0]
+    ps = Pass(P, batch, config or {})
+    walk = layers(a, params)
+    states: List[Dict[str, Any]] = [{} for _ in walk]
 
     def forward(tokens, pos0):
         x = params["embed"][tokens.long()][None]
-        for l in range(L):
-            x = layer(l, x, pos0)
-        return head(a, params, rms_norm(x[0, -1:], params["final_norm"], eps))[0]
+        for (block, p), state in zip(walk, states):
+            x = block.step(a, p, x, pos0, state, ps)
+        return head(a, params, rms_norm(x[0, -1:], params["final_norm"], a["norm_eps"]))[0]
 
     logits = [forward(prompt, 0)]
     tokens = [logits[0].argmax()]
     for j in range(gen - 1):
         logits.append(forward(tokens[-1][None], P + j))
         tokens.append(logits[-1].argmax())
-    return (torch.stack(tokens), torch.stack(logits),
-            [torch.cat(c) for c in choices] if moe_layer else None)
+    chose = [torch.cat(s["chose"]) for s in states if "chose" in s]
+    return torch.stack(tokens), torch.stack(logits), chose or None
 
 
 # ------------------------------------------------------------------ AdamW

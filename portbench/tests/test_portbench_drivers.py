@@ -69,8 +69,9 @@ def test_moe_sample_meets_capacity_drops():
     drv.measure(r, prog, cycles=1)
     b = [b for b in r.facts["batches"] if b["P"] == 256][0]
     routes = drv._routes_of(r, b, 0)
-    group = b["B"] * b["P"] // ref.largest_divisor_leq(b["B"] * b["P"], 64)
-    dropped = sum(int((~ref.kept(cell.arch, rt[:b["P"]], group)).sum()) for rt in routes)
+    moe = ref.kind("moe")
+    group = b["B"] * b["P"] // moe.largest_divisor_leq(b["B"] * b["P"], 64)
+    dropped = sum(int((~moe.kept(cell.arch, rt[:b["P"]], group)).sum()) for rt in routes)
     assert dropped > 0
 
 

@@ -1,6 +1,7 @@
-"""What the benchmark loads: the reference imports nothing of the port,
-and a whole run loads no module whose top-level name is jax, jaxlib, flax
-or repro (compared whole: the port's name begins with repro)."""
+"""What the benchmark loads: the reference and the layer kinds' arithmetic
+import nothing of the port, and a whole run loads no module whose
+top-level name is jax, jaxlib, flax or repro (compared whole: the port's
+name begins with repro)."""
 
 from __future__ import annotations
 
@@ -26,8 +27,17 @@ def _top_level(body: str):
 
 
 def test_reference_imports_nothing_of_the_port():
-    mods = _top_level("import reference.lm, reference.check")
+    mods = _top_level("import importlib, pkgutil, reference.lm, reference.check, reference.kinds\n"
+                      "for m in pkgutil.iter_modules(reference.kinds.__path__):\n"
+                      "    importlib.import_module('reference.kinds.' + m.name)")
     assert not mods & {"repro_torch", "repro", "jax", "jaxlib", "flax", "harness"}
+
+
+def test_layer_kinds_arithmetic_imports_nothing_of_the_port():
+    mods = _top_level("import importlib, pkgutil, harness.counts, harness.weights, harness.kinds\n"
+                      "for m in pkgutil.iter_modules(harness.kinds.__path__):\n"
+                      "    importlib.import_module('harness.kinds.' + m.name)")
+    assert not mods & {"repro_torch", "repro", "jax", "jaxlib", "flax", "reference"}
 
 
 def test_a_whole_run_loads_no_jax_package():
